@@ -1,0 +1,16 @@
+"""Model substrate: layers, attention, and the dense decoder assembly
+(init / prefill / chunked prefill / paged decode), plus the weight bridge
+from the reference package."""
+from .bridge import params_from_numpy  # noqa: F401
+from .transformer import (  # noqa: F401
+    chunk_prefill_fn,
+    init_cache,
+    init_params,
+    layer_pattern,
+    paged_chunk_prefill_fn,
+    paged_decode_fn,
+    prefill_fn,
+    resolve_device,
+    supports_paged_stack,
+    torch_dtype,
+)

@@ -1,0 +1,103 @@
+"""Attention as plain PyTorch: causal prefill, mid-prefill chunk
+attention, and cached one-token decode with ragged lengths.
+
+All paths are GQA-native: queries are shaped (B, S, Hkv, G, hd) inside
+the einsums so K/V are never expanded to Hq width.  The reference runs
+prefill as a blocked online-softmax scan in jnp (no Pallas kernel, so
+there is nothing to port as a kernel); here prefill is a direct fp32
+masked softmax with the same masks, which is exact in arithmetic but not
+in rounding order.  One-token decode over the paged pool has its own
+kernel (:mod:`repro_torch.kernels.paged_attention`); :func:`decode_attention`
+is the contiguous-view oracle the ``"gather"`` paged path reuses.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["causal_attention", "chunk_attention", "decode_attention"]
+
+_NEG = -1e30
+
+
+def _scale(hd: int, device) -> torch.Tensor:
+    return 1.0 / torch.sqrt(torch.tensor(float(hd), device=device))
+
+
+def _group_q(q, n_kv: int):
+    """(B, Sq, Hq, hd) -> (B, Sq, Hkv, G, hd)."""
+    b, s, hq, hd = q.shape
+    assert hq % n_kv == 0, (hq, n_kv)
+    return q.reshape(b, s, n_kv, hq // n_kv, hd)
+
+
+def causal_attention(q, k, v, *, q_offset: int = 0, sliding_window: int = 0,
+                     lengths: Optional[torch.Tensor] = None):
+    """Causal self-attention.  q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd);
+    q_offset: absolute position of q[0]; lengths: (B,) valid kv lengths.
+
+    Masks as the reference's flash scan does: causal (and window) masked
+    scores are set to -1e30, then an additive -1e30 bias carries the
+    ragged ``lengths``.  The pre-scaled query and the probabilities are
+    rounded to the K/V dtype before the fp32-accumulated products, as in
+    the reference.  Returns (B, Sq, Hq, hd) in q's dtype."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qf = (_group_q(q, hkv).float() * _scale(hd, q.device)).to(k.dtype)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf.float(), k.float())
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kv_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = kv_pos <= q_pos
+    if sliding_window:
+        mask = mask & (kv_pos > q_pos - sliding_window)
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    if lengths is not None:
+        bias = torch.where(kv_pos < lengths.long()[:, None], 0.0, _NEG)
+        s = s + bias[:, None, None, None, :].float()
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
+    return out.reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def chunk_attention(q, k_cache, v_cache, *, q_pos, kv_len):
+    """Mid-prefill chunk attention with per-row query offsets.
+
+    q: (B, C, Hq, hd) — the chunk's queries, right-padded per row;
+    k_cache, v_cache: (B, L, Hkv, hd) — the full per-row buffers, with
+    this chunk's KV already written; q_pos: (B, C) absolute query
+    positions; kv_len: (B,) valid cache length including this chunk.
+    Padded query columns produce garbage rows the caller drops."""
+    b, c, hq, hd = q.shape
+    L, hkv = k_cache.shape[1], k_cache.shape[2]
+    qf = _group_q(q, hkv).float() * _scale(hd, q.device)
+    s = torch.einsum("bqhgd,blhd->bhgql", qf, k_cache.float())
+    kv_pos = torch.arange(L, device=q.device)
+    mask = ((kv_pos[None, None, :] <= q_pos.long()[:, :, None])
+            & (kv_pos[None, None, :] < kv_len.long()[:, None, None]))
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgql,blhd->bhgqd", p, v_cache.float())
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, c, hq, hd)
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """One-token attention against a contiguous KV view.
+
+    q: (B, Hq, hd); k_cache, v_cache: (B, L, Hkv, hd); lengths: (B,) —
+    tokens so far *including* the new one (whose KV is already written).
+    The pre-scaled query and the probabilities are rounded to the cache
+    dtype before fp32-accumulated products, as in the reference."""
+    b, hq, hd = q.shape
+    L, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qf = (q.reshape(b, hkv, g, hd).float()
+          * _scale(hd, q.device)).to(k_cache.dtype)
+    s = torch.einsum("bhgd,blhd->bhgl", qf.float(), k_cache.float())
+    mask = torch.arange(L, device=q.device)[None, :] \
+        < lengths.long()[:, None]
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgl,blhd->bhgd", p.float(), v_cache.float())
+    return out.reshape(b, hq, hd).to(q.dtype)
