@@ -7,21 +7,36 @@ result line):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-   with nvcc for sm_90a (timed, with the compiler's register report).
+   with nvcc for sm_90a, one process per source, all at once (timed,
+   with the compiler's register report).
 3. Kernel phases, at the shapes of the granite-8b serving path: the
    RMS-norm kernel on (32, 4096) bf16 and the paged decode-attention
    kernel at B=32, Hq=32, Hkv=8, hd=128, block 16, 16 blocks per row
-   (bf16 pool, permuted tables, ragged lengths including 1 and 256).
-   Each is held against its plain PyTorch version (bf16, atol = rtol =
-   2e-2) and timed with CUDA events beside its bound, its plain version
-   and a one-call PyTorch yardstick the port never calls.
-4. Cross-device check on a small input: granite-8b-smoke in float32
+   (bf16 pool, permuted tables, ragged lengths including 1 and 256), each
+   held against its plain PyTorch version (bf16, atol = rtol = 2e-2); and
+   the BF-IO swap-search kernel at the fleet router's shape (C=1, G=4,
+   N=64, W=1, integer loads) and at pod scale (C=8, G=32, N=512, W=9,
+   random floats, ragged ``valid``, ``assign`` with -1s), held against its
+   plain version bit for bit (``best_val`` everywhere, ``best_j`` on
+   finite rows).  Each is timed with CUDA events beside its bound, its
+   plain version and, where one exists, a one-call PyTorch yardstick the
+   port never calls.
+4. Cross-device checks on a small input: granite-8b-smoke in float32
    served on the CPU (plain versions) and on the card (kernels) with the
-   same weights must give equal engine stats and equal generations.
-5. The main path: ``repro_torch.launch.serve`` on full granite-8b (36
-   layers, bf16, seeded random weights), paged backend, bfio_h8, 4 workers
-   x 8 slots, 32 requests of 16 new tokens.  Launch counters are zeroed
-   just before and read just after; both kernels must have run on every
+   same weights.  One engine, then a fleet of 4 replicas under ``bfio``,
+   under ``pod_bfio_p2`` and as an ``AsyncFleetServer`` with the
+   utilization autoscaler: stats, telemetry rows and generations equal.
+5. The single-engine path: ``repro_torch.launch.serve`` on full
+   granite-8b (36 layers, bf16, seeded random weights), paged backend,
+   bfio_h8, 4 workers x 8 slots, 32 requests of 16 new tokens.  Launch
+   counters are zeroed just before and read just after; both kernels
+   must have run on every decode step.  The engine is freed afterwards.
+6. The fleet path: ``repro_torch.launch.serve`` in fleet mode on full
+   granite-8b (one shared copy of the weights), 4 replicas of 4 workers x
+   8 slots, ``bfio_h0`` engines behind the ``bfio`` router, 64 requests of
+   the ``flash_crowd`` scenario.  Counters zeroed just before and read
+   just after: every request must finish, the swap kernel must run
+   ``swap_iters`` times per routing step, and K1 and K2 on every replica
    decode step.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
@@ -180,6 +195,83 @@ def phase_paged_attention(dev, flush):
                       f"max_blocks={mb} bf16, sum(len)={tok}")
 
 
+def _swap_inputs(dev, C, G, N, W, *, seed, n_valid=None):
+    """Swap-search inputs.  With ``n_valid`` the router's shape: integer
+    loads and prefill sizes, the first ``n_valid`` rows of the padded
+    bucket valid and assigned; without, random floats with ragged
+    ``valid`` and ``assign`` holding -1s (the reference's fixtures)."""
+    rng = np.random.default_rng(seed)
+    if n_valid is not None:
+        loads = rng.integers(0, 2048, (C, G, W)).astype(np.float32)
+        cands = rng.integers(2, 256, (C, N, W)).astype(np.float32)
+        valid = np.zeros((C, N), bool)
+        valid[:, :n_valid] = True
+        assign = np.where(valid, rng.integers(0, G, (C, N)), -1)
+    else:
+        loads = rng.uniform(0, 10, (C, G, W)).astype(np.float32)
+        cands = rng.uniform(0, 5, (C, N, W)).astype(np.float32)
+        assign = rng.integers(-1, G, (C, N))
+        valid = rng.random((C, N)) > 0.1
+    return (torch.from_numpy(loads).to(dev), torch.from_numpy(cands).to(dev),
+            torch.from_numpy(assign.astype(np.int32)).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def _swap_case(dev, C, G, N, W, **kw):
+    from repro_torch.kernels import bfio_swap as bs
+    args = _swap_inputs(dev, C, G, N, W, **kw)
+    vk, ak = bs.swap_best(*args)
+    vp, ap = bs.swap_best_plain(*args)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(vp)
+    check(torch.equal(vk, vp), f"bfio_swap C={C} N={N} W={W}: best_val "
+          f"differs from the plain version (max abs err "
+          f"{(vk - vp).abs().nan_to_num().max().item():.3e})")
+    check(torch.equal(ak[fin], ap[fin]),
+          f"bfio_swap C={C} N={N} W={W}: best_j differs on finite rows")
+    check(bool(fin.any().item()), f"bfio_swap C={C}: no feasible pair")
+    prepped = bs.swap_prep(*args)
+    loads, cands, assign, valid = args
+    ms = time_ms(lambda: bs.swap_best(*args))
+    kernel_ms = time_ms(lambda: bs._launch(*prepped, cands, G))
+    plain_ms = time_ms(lambda: bs.swap_best_plain(*args))
+    # bound: each input read once, each output written once; operations
+    # are 6 float32 ops (sub, add, sub, max, max, add) per window slot of
+    # each feasible pair of this input
+    adm = (assign >= 0) & valid
+    ga = assign.clamp(min=0)
+    pairs = int((adm[:, :, None] & adm[:, None, :]
+                 & (ga[:, :, None] != ga[:, None, :])).sum().item())
+    nbytes = 4 * C * G * W + 4 * C * N * W + 5 * C * N + 8 * C * N
+    b_ms, b_by = bound(nbytes, 6.0 * pairs * W)
+    return dict(max_abs_err=0.0, ms=ms, kernel_only_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, feasible_pairs=pairs,
+                shape=f"C={C} G={G} N={N} W={W}")
+
+
+def phase_bfio_swap(dev):
+    """K4 at the fleet router's shape (its power-of-two bucket of 64
+    candidates, 24 real) and at pod scale; bit-identical to plain."""
+    fleet = _swap_case(dev, 1, 4, 64, 1, seed=11, n_valid=24)
+    pod = _swap_case(dev, 8, 32, 512, 9, seed=12)
+    for k in (fleet, pod):
+        print(f"kernel bfio_swap [{k['shape']}]: {k['ms'] * 1e3:.2f} us "
+              f"(kernel alone {k['kernel_only_ms'] * 1e3:.2f} us; bound "
+              f"{k['bound_ms'] * 1e3:.3f} us by {k['bound_by']}, "
+              f"{k['feasible_pairs']} feasible pairs), plain "
+              f"{k['plain_ms'] * 1e3:.2f} us, library none, bit-identical")
+    return dict(name="bfio_swap", route="cuda",
+                source="src/repro_torch/kernels/csrc/bfio_swap.cu",
+                replaces="src/repro/kernels/bfio_swap.py:126",
+                **{k: fleet[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape", "kernel_only_ms")},
+                at_pod_scale={k: pod[k] for k in (
+                    "shape", "ms", "kernel_only_ms", "plain_ms",
+                    "bound_ms", "bound_by")})
+
+
 def phase_cross_device(dev):
     """Small input: the card's kernel path against the CPU plain path on
     the same float32 weights and request stream."""
@@ -209,6 +301,151 @@ def phase_cross_device(dev):
     return runs[1][0]["tokens"]
 
 
+def phase_cross_device_fleet(dev):
+    """A fleet of 4 replicas on the same float32 weights, on the CPU and
+    on the card: ``bfio``, ``pod_bfio_p2`` and the async fleet with the
+    utilization autoscaler (deciding every 20 ms of fleet clock, which
+    drains replicas mid-stream) must give equal stats, telemetry rows and
+    generations."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.fleet import (AsyncFleetServer, FleetServer,
+                                   FleetTelemetry, make_autoscaler,
+                                   make_scenario)
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig
+    cfg = dataclasses.replace(get_smoke_config("granite-8b"),
+                              dtype="float32")
+    p_cpu = init_params(cfg, 0, device="cpu")
+    p_dev = _tree_to(p_cpu, dev)
+    ec = EngineConfig(n_workers=2, slots_per_worker=4, max_seq_len=256,
+                      cache_backend="paged", prefill_chunk=32)
+    sc = make_scenario("flash_crowd", n_requests=32, n_replicas=4,
+                       n_workers=2, slots_per_worker=4, max_seq_len=256,
+                       vocab_size=cfg.vocab_size, seed=3)
+    cases = (("bfio", FleetServer, {}), ("pod_bfio_p2", FleetServer, {}),
+             ("bfio", AsyncFleetServer, {"autoscaler": "util"}))
+    out = []
+    for router, cls, kw in cases:
+        runs = []
+        for params, d in ((p_cpu, "cpu"), (p_dev, dev)):
+            tel = FleetTelemetry()
+            extra = ({"autoscaler": make_autoscaler(
+                kw["autoscaler"], r_min=1, r_max=4, interval_s=0.02,
+                warmup_s=0.01)} if kw else {})
+            fleet = cls(cfg, params, ec, n_replicas=4, router=router,
+                        policy="bfio_h0", device=d, telemetry=tel,
+                        **extra)
+            fleet.submit_scenario(sc)
+            stats = fleet.run()
+            runs.append((stats, tel.steps, tel.requests,
+                         [r.generated for r in fleet.requests]))
+        what = f"{cls.__name__}/{router}"
+        for i, name in enumerate(("stats", "telemetry steps",
+                                  "telemetry requests", "generations")):
+            check(runs[0][i] == runs[1][i],
+                  f"cross-device fleet {what}: {name} differ between the "
+                  f"CPU and the card")
+        check(runs[1][0]["completed"] == sc.n_requests,
+              f"cross-device fleet {what}: not every request completed")
+        check(not kw or runs[1][0]["drain_handoffs"] > 0,
+              f"cross-device fleet {what}: no drain handoff, so the card's "
+              f"host-staged swap path went untested")
+        out.append((what, runs[1][0]["tokens"], len(runs[1][1]),
+                    runs[1][0].get("drain_handoffs", 0)))
+    return out
+
+
+def _count_decodes(fleet) -> list:
+    """Count the replicas' paged decode calls (one per replica decode
+    step) by wrapping each backend's ``decode``."""
+    n = [0]
+    for eng in fleet.engines:
+        inner = eng.backend.decode
+
+        def counted(*a, _inner=inner, **kw):
+            n[0] += 1
+            return _inner(*a, **kw)
+        eng.backend.decode = counted
+    return n
+
+
+def phase_fleet_path() -> dict:
+    """The fleet main path on full granite-8b through the launcher's
+    fleet mode; returns the kernels' launch counts of this run."""
+    from repro_torch.kernels import bfio_swap as bs
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rms_norm as rk
+    from repro_torch.launch.serve import (build_parser, make_fleet,
+                                          make_model, serve_fleet)
+    args = build_parser().parse_args(
+        ["--arch", "granite-8b", "--replicas", "4", "--workers", "4",
+         "--slots", "8", "--cache-backend", "paged", "--policy", "bfio_h0",
+         "--router", "bfio", "--scenario", "flash_crowd", "--requests",
+         "64", "--seed", "0"])
+    t0 = time.perf_counter()
+    cfg, params, device = make_model(args)
+    built = make_fleet(args, cfg, params, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fleet = built["fleet"]
+    decodes = _count_decodes(fleet)
+    rk.rms_norm.launches = 0
+    pa.paged_decode_attention.launches = 0
+    bs.swap_best.launches = 0
+    out = serve_fleet(args, built=built)
+    launches = {"rms_norm": rk.rms_norm.launches,
+                "paged_decode_attention": pa.paged_decode_attention.launches,
+                "bfio_swap": bs.swap_best.launches}
+    stats, meas = out["stats"], out["measured"]
+    reqs = fleet.requests
+    check(len(reqs) == 64 and all(r.done and not r.failed for r in reqs),
+          "fleet path: not every request finished")
+    check(stats["completed"] == 64 and stats["failed"] == 0,
+          f"fleet path: {stats['completed']} completed, {stats['failed']} "
+          f"failed")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "fleet path: token id out of range")
+    L, n_dec = cfg.n_layers, decodes[0]
+    n_route = meas["routing_steps"]
+    swap_iters = fleet.router.swap_iters
+    check(n_dec > 0 and n_route > 0, "fleet path: no decode or no routing")
+    check(all(v > 0 for v in launches.values()),
+          f"fleet path: a kernel never launched: {launches}")
+    check(launches["bfio_swap"] >= swap_iters * n_route,
+          f"fleet path: swap kernel launched {launches['bfio_swap']} "
+          f"times over {n_route} routing steps, need >= {swap_iters} "
+          f"each")
+    check(launches["rms_norm"] >= (2 * L + 1) * n_dec,
+          f"fleet path: rms_norm kernel launched "
+          f"{launches['rms_norm']} times, need >= "
+          f"{(2 * L + 1) * n_dec}")
+    check(launches["paged_decode_attention"] >= L * n_dec,
+          f"fleet path: paged attention kernel launched "
+          f"{launches['paged_decode_attention']} times, need >= "
+          f"{L * n_dec}")
+    print(f"fleet path: {cfg.name} ({L} layers, d={cfg.d_model}, "
+          f"{cfg.dtype}, one shared copy), R={fleet.R} x {args.workers} "
+          f"workers x {args.slots} slots, router {stats['router']}, "
+          f"scenario flash_crowd; init {init_s:.2f} s; 64 requests, "
+          f"{stats['tokens']} tokens, {meas['fleet_steps']} fleet steps, "
+          f"{n_dec} replica decode steps, {n_route} routing steps; "
+          f"launches {launches}")
+    print(f"fleet path MEASURED on {meas['device']}: wall "
+          f"{meas['wall_s']:.3f} s, fleet step {meas['fleet_step_ms']:.2f} "
+          f"ms (mean of {meas['fleet_steps']}), router solve "
+          f"{meas['router_solve_ms']:.2f} ms per routing step, "
+          f"{meas['tokens_per_s']:.1f} tok/s, peak memory "
+          f"{meas['peak_memory_gb']:.2f} GB")
+    print(f"fleet path MODELLED (fleet stats, A100 power model): time "
+          f"{stats['time_s']:.4f} s, {stats['throughput_tok_s']:.1f} tok/s, "
+          f"energy {stats['energy_j']:.2f} J ({stats['idle_j']:.2f} J "
+          f"barrier idle), {stats['energy_per_token']:.3f} J/tok, "
+          f"cross-replica imbalance {stats['avg_cross_imbalance']:.2f}")
+    del out, built, fleet, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -231,6 +468,7 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
+    from repro_torch.kernels import bfio_swap as bs
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rms_norm as rk
@@ -253,9 +491,16 @@ def main() -> None:
               f"{k['library_ms'] * 1e3:.2f} us, max abs err "
               f"{k['max_abs_err']:.3e}")
 
+    kernels.append(phase_bfio_swap(dev))
+
     toks = phase_cross_device(dev)
     print(f"cross-device: granite-8b-smoke f32, {toks} tokens, stats and "
           f"generations equal on cpu and {torch.cuda.get_device_name(0)}")
+    for what, toks, rows, handoffs in phase_cross_device_fleet(dev):
+        print(f"cross-device fleet {what}: granite-8b-smoke f32, R=4, "
+              f"{toks} tokens, {rows} telemetry steps, {handoffs} drain "
+              f"handoffs; stats, telemetry and generations equal on cpu "
+              f"and the card")
 
     from repro_torch.launch.serve import build_parser, make_engine, serve
     args = build_parser().parse_args(
@@ -268,9 +513,11 @@ def main() -> None:
     init_s = time.perf_counter() - t0
     rk.rms_norm.launches = 0
     pa.paged_decode_attention.launches = 0
+    bs.swap_best.launches = 0
     out = serve(args, eng)
     launches = {"rms_norm": rk.rms_norm.launches,
-                "paged_decode_attention": pa.paged_decode_attention.launches}
+                "paged_decode_attention": pa.paged_decode_attention.launches,
+                "bfio_swap": bs.swap_best.launches}
     stats, meas, reqs = out["stats"], out["measured"], out["requests"]
     check(all(r.done and not r.failed for r in reqs),
           "main path: not every request finished")
@@ -288,6 +535,8 @@ def main() -> None:
           f"main path: paged attention kernel launched "
           f"{launches['paged_decode_attention']} times, need >= "
           f"{L * n_dec}")
+    check(launches["rms_norm"] > 0 and launches["paged_decode_attention"] > 0,
+          "main path: a kernel of the path never launched")
     print(f"main path: {eng.cfg.name} ({L} layers, d={eng.cfg.d_model}, "
           f"{eng.cfg.dtype}), init {init_s:.2f} s; {len(reqs)} requests, "
           f"{stats['tokens']} tokens, {meas['steps']} steps "
@@ -302,15 +551,24 @@ def main() -> None:
           f"tok/s, energy {stats['energy_j']:.2f} J, avg imbalance "
           f"{stats['avg_imbalance']:.2f}")
 
+    del eng, out, reqs
+    torch.cuda.empty_cache()
+    fleet_launches = phase_fleet_path()
+
     rows = []
     for k in kernels:
         row = {key: k[key] for key in (
             "name", "route", "source", "replaces")}
-        row["launches"] = launches[k["name"]]
+        by_path = {"engine": launches.get(k["name"], 0),
+                   "fleet": fleet_launches[k["name"]]}
+        row["launches"] = sum(by_path.values())
         row.update({key: k[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")})
+        row["launches_by_path"] = by_path
         row["matched"] = True
+        row.update({key: k[key] for key in ("kernel_only_ms",
+                                            "at_pod_scale") if key in k})
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""Host-side BF-IO core (numpy): workload models, the (IO) solver,
-lookahead, routing policies, metrics and the power model."""
+"""BF-IO core: the host-side numpy modules (workload models, the (IO)
+solver, lookahead, routing policies, metrics and the power model) and
+the batched balancer on the device, :mod:`repro_torch.core.balancer_jax`
+(``bfio_assign``, ``bfio_assign_batch``, ``windowed_imbalance``)."""
 from .workload import (  # noqa: F401
     ArrivalInstance,
     DriftModel,

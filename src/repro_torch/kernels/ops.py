@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import torch
 
+from .bfio_swap import swap_best
 from .paged_attention import paged_decode_attention
 from .rms_norm import rms_norm
 
-__all__ = ["on_cuda", "rms_norm", "paged_decode_attention"]
+__all__ = ["on_cuda", "rms_norm", "paged_decode_attention", "swap_best"]
 
 
 def on_cuda() -> bool:

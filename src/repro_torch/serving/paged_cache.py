@@ -310,8 +310,10 @@ class PagedKVCache:
     @classmethod
     def create(cls, *, n_layers: int, n_blocks: int, block_size: int,
                n_kv_heads: int, head_dim: int, max_requests: int,
-               max_blocks_per_req: int, dtype=torch.bfloat16,
-               prefix_evict: str = "lru", device="cpu"):
+               max_blocks_per_req: int, device, dtype=torch.bfloat16,
+               prefix_evict: str = "lru"):
+        """A zeroed pool on ``device`` (required: the backend passes its
+        own, so a card's engine never builds its pool on the CPU)."""
         z = torch.zeros((n_layers, n_blocks, block_size, n_kv_heads,
                          head_dim), dtype=dtype, device=device)
         return cls(

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bfio_swap as bs
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rms_norm as rk
@@ -29,6 +30,11 @@ torch.backends.cudnn.allow_tf32 = False
 RMS_SHAPES = [(4, 32), (2, 7, 96), (1, 128), (5, 3, 2, 64)]
 PAGED_CASES = [(2, 4, 2, 32, 8, 4), (3, 8, 4, 64, 16, 5),
                (1, 16, 2, 128, 32, 3)]
+# (C, G, N, W, n_valid): the chip smoke's two shapes (the router's bucket
+# with integer loads, pod scale with random floats), N below the kernel's
+# 64-row tile, and ragged tiles
+SWAP_CASES = [(1, 4, 64, 1, 24), (8, 32, 512, 9, None), (1, 3, 17, 2, None),
+              (3, 4, 33, 3, None), (2, 5, 130, 4, 100)]
 DTYPES = {"float32": ("float32", torch.float32, 2e-5),
           "bfloat16": ("bfloat16", torch.bfloat16, 2e-2)}
 
@@ -53,6 +59,26 @@ def cuda():
         pytest.skip("needs a CUDA card: run `python -m pytest -m cuda "
                     "tests/test_torch_kernels.py` on the H100")
     return torch.device("cuda")
+
+
+def _swap_inputs(C, G, N, W, n_valid, seed=0):
+    """With ``n_valid``: integer loads and sizes, the first rows valid
+    (the router's padded bucket); without: random floats, ragged
+    ``valid``, ``assign`` with -1s (the reference's fixtures)."""
+    rng = np.random.default_rng(seed)
+    if n_valid is not None:
+        loads = rng.integers(0, 2048, (C, G, W)).astype(np.float32)
+        cands = rng.integers(2, 256, (C, N, W)).astype(np.float32)
+        valid = np.zeros((C, N), bool)
+        valid[:, :n_valid] = True
+        assign = np.where(valid, rng.integers(0, G, (C, N)), -1)
+    else:
+        loads = rng.uniform(0, 10, (C, G, W)).astype(np.float32)
+        cands = rng.uniform(0, 5, (C, N, W)).astype(np.float32)
+        assign = rng.integers(-1, G, (C, N))
+        valid = rng.random((C, N)) > 0.1
+    return [torch.from_numpy(a) for a in (loads, cands,
+                                          assign.astype(np.int32), valid)]
 
 
 def _np32(a) -> np.ndarray:
@@ -174,6 +200,27 @@ class TestPagedAttentionPlain:
         assert pa.paged_decode_attention.launches == before == 0
 
 
+class TestSwapWrapper:
+    def test_cpu_wrapper_takes_plain_path(self):
+        args = _swap_inputs(2, 4, 33, 3, None, seed=4)
+        before = bs.swap_best.launches
+        got = ops.swap_best(*args)
+        want = bs.swap_best_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bs.swap_best.launches == before == 0
+
+    def test_unbatched_is_cluster_of_one(self):
+        args = _swap_inputs(1, 3, 17, 2, None, seed=5)
+        v1, a1 = bs.swap_best(*(a[0] for a in args))
+        vb, ab = bs.swap_best(*args)
+        assert torch.equal(v1, vb[0]) and torch.equal(a1, ab[0])
+
+    def test_other_device_raises(self):
+        args = [a.to("meta") for a in _swap_inputs(1, 3, 8, 1, None)]
+        with pytest.raises(ValueError):
+            bs.swap_best(*args)
+
+
 @pytest.mark.cuda
 class TestKernelsOnCard:
     """Each Hopper kernel against its plain version on the card."""
@@ -209,6 +256,39 @@ class TestKernelsOnCard:
         want = pa.paged_decode_attention_plain(*args, bs)
         np.testing.assert_allclose(_t32(got), _t32(want), atol=tol, rtol=tol)
         assert torch.all(got[0] == 0)
+
+    @pytest.mark.parametrize("case", SWAP_CASES)
+    def test_swap_kernel_bit_identical(self, cuda, case):
+        args = [a.to(cuda) for a in _swap_inputs(*case, seed=13)]
+        before = bs.swap_best.launches
+        vk, ak = bs.swap_best(*args)
+        torch.cuda.synchronize()
+        assert bs.swap_best.launches == before + 1
+        vp, ap = bs.swap_best_plain(*args)
+        vd, ad = bs.swap_best_dense(*args)
+        fin = torch.isfinite(vp)
+        assert fin.any()
+        assert torch.equal(vk, vp) and torch.equal(vk, vd)
+        assert torch.equal(ak[fin], ap[fin]) and torch.equal(ak[fin],
+                                                             ad[fin])
+        assert torch.all(ak[~fin] == 0)       # (+inf, 0) as jnp.argmin
+
+    def test_swap_solver_on_card_matches_cpu(self, cuda):
+        from repro_torch.core.balancer_jax import bfio_assign_batch
+        rng = np.random.default_rng(21)
+        C, G, N, W = 3, 5, 40, 2
+        base = rng.uniform(0, 10, (C, G, W)).astype(np.float32)
+        caps = rng.integers(0, 12, (C, G)).astype(np.int32)
+        cands = rng.uniform(0.5, 5, (C, N, W)).astype(np.float32)
+        valid = rng.random((C, N)) > 0.2
+        n_admit = np.minimum(valid.sum(1), caps.sum(1)).astype(np.int32)
+        host = [torch.from_numpy(a) for a in (base, caps, cands, valid,
+                                              n_admit)]
+        want = bfio_assign_batch(*host, method="plain")
+        before = bs.swap_best.launches
+        got = bfio_assign_batch(*[a.to(cuda) for a in host])
+        assert bs.swap_best.launches == before + 8
+        assert torch.equal(got.cpu(), want)
 
     def test_kernel_rejects_bad_input(self, cuda):
         x = torch.ones((4, 64), device=cuda, dtype=torch.float16)

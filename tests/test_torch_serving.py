@@ -253,3 +253,16 @@ def test_paged_cache_writes_match_reference():
     np.testing.assert_array_equal(tc.k_pool.numpy(), np.asarray(jc.k_pool))
     np.testing.assert_array_equal(tc.v_pool.numpy(), np.asarray(jc.v_pool))
     assert tc.resident_bytes() == jc.resident_bytes()
+
+
+def test_paged_cache_create_requires_device():
+    """The pool is built where the caller says: no CPU default that a
+    card's engine could silently fall back to."""
+    from repro_torch.serving import PagedKVCache
+
+    kw = dict(n_layers=1, n_blocks=4, block_size=4, n_kv_heads=1,
+              head_dim=8, max_requests=2, max_blocks_per_req=2)
+    with pytest.raises(TypeError, match="device"):
+        PagedKVCache.create(**kw)
+    pool = PagedKVCache.create(device="cpu", **kw)
+    assert pool.k_pool.device.type == "cpu"
