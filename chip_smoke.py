@@ -9,28 +9,39 @@ result line):
 2. Build the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a, one process per source, all at once (timed,
    with the compiler's register report).
-3. Kernel phases, at the shapes of the granite-8b serving path: the
-   RMS-norm kernel on (32, 4096) bf16 and the paged decode-attention
-   kernel at B=32, Hq=32, Hkv=8, hd=128, block 16, 16 blocks per row
-   (bf16 pool, permuted tables, ragged lengths including 1 and 256), each
-   held against its plain PyTorch version (bf16, atol = rtol = 2e-2); and
-   the BF-IO swap-search kernel at the fleet router's shape (C=1, G=4,
+3. Kernel phases, at the shapes of the serving paths: the RMS-norm
+   kernel (K2) on (32, 4096) bf16 and the paged decode-attention kernel
+   (K1) at B=32, Hq=32, Hkv=8, hd=128, block 16, 16 blocks per row (bf16
+   pool, permuted tables, ragged lengths including 1 and 256); the
+   contiguous decode-attention kernel (K3) at granite-8b's slot shape
+   (B=32, Hq=32, Hkv=8, hd=128, L=256) and zamba2's (Hq=Hkv=32, hd=64),
+   with a rolling case (lengths past L) and a sliding-window case (bf16,
+   ragged lengths including 1 and L); each held against its plain
+   PyTorch version (bf16, atol = rtol = 2e-2).  The chunked-scan kernel
+   (K5) on float32 inputs as the models pass them, at zamba2's prefill
+   shape (B=32, S=64, H=32, dk=64, dv=128, chunk 64), at xlstm's (H=4,
+   dk=512, dv=513) and at a ragged S that ``ops.ssm_chunk_scan`` pads,
+   held against its plain version at 1e-3 (y and the final state).  The
+   BF-IO swap-search kernel (K4) at the fleet router's shape (C=1, G=4,
    N=64, W=1, integer loads) and at pod scale (C=8, G=32, N=512, W=9,
    random floats, ragged ``valid``, ``assign`` with -1s), held against its
    plain version bit for bit (``best_val`` everywhere, ``best_j`` on
    finite rows).  Each is timed with CUDA events beside its bound, its
    plain version and, where one exists, a one-call PyTorch yardstick the
    port never calls.
-4. Cross-device checks on a small input: granite-8b-smoke in float32
-   served on the CPU (plain versions) and on the card (kernels) with the
-   same weights.  One engine, then a fleet of 4 replicas under ``bfio``,
-   under ``pod_bfio_p2`` and as an ``AsyncFleetServer`` with the
-   utilization autoscaler: stats, telemetry rows and generations equal.
+4. Cross-device checks on a small input: float32 smoke configs served on
+   the CPU (plain versions) and on the card (kernels) with the same
+   weights.  granite-8b-smoke on the paged backend; then a fleet of 4
+   replicas under ``bfio``, under ``pod_bfio_p2`` and as an
+   ``AsyncFleetServer`` with the utilization autoscaler; then the slot
+   backend with granite-8b-smoke (synchronous and chunked prefill),
+   zamba2-1.2b-smoke and xlstm-350m-smoke.  Stats (and telemetry rows)
+   and generations equal.
 5. The single-engine path: ``repro_torch.launch.serve`` on full
    granite-8b (36 layers, bf16, seeded random weights), paged backend,
    bfio_h8, 4 workers x 8 slots, 32 requests of 16 new tokens.  Launch
-   counters are zeroed just before and read just after; both kernels
-   must have run on every decode step.  The engine is freed afterwards.
+   counters are zeroed just before and read just after; K1 and K2 must
+   have run on every decode step.  The engine is freed afterwards.
 6. The fleet path: ``repro_torch.launch.serve`` in fleet mode on full
    granite-8b (one shared copy of the weights), 4 replicas of 4 workers x
    8 slots, ``bfio_h0`` engines behind the ``bfio`` router, 64 requests of
@@ -38,6 +49,15 @@ result line):
    just after: every request must finish, the swap kernel must run
    ``swap_iters`` times per routing step, and K1 and K2 on every replica
    decode step.
+7. The slot paths: ``repro_torch.launch.serve --cache-backend slot`` at
+   full width and depth with bfio_h8, 4 workers x 8 slots and 16 new
+   tokens: granite-8b (32 requests; K3 on each of its 36 layers and K2
+   on every norm of every decode step), zamba2-1.2b (32 requests; K3 on
+   each of its 6 shared-attention applications per decode step, K5 on
+   each of its 32 Mamba2 blocks per prefill call, K2 on every norm) and
+   xlstm-350m (8 requests; K5 on each of its 21 mLSTM blocks per prefill
+   call, K2 on every norm).  Counters zeroed just before and read just
+   after each; each engine is freed before the next.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is disabled for matmuls and
@@ -46,6 +66,7 @@ cuDNN so float32 comparisons are float32.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -104,11 +125,11 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def compare(name, got, want):
+def compare(name, got, want, tol=TOL):
     torch.cuda.synchronize()
     check(torch.isfinite(got.float()).all().item(), f"{name}: non-finite")
     err = (got.float() - want.float()).abs()
-    ok = (err <= TOL["atol"] + TOL["rtol"] * want.float().abs()).all().item()
+    ok = (err <= tol["atol"] + tol["rtol"] * want.float().abs()).all().item()
     check(ok, f"{name}: kernel disagrees with its plain version (max abs "
               f"err {err.max().item():.3e})")
     return float(err.max().item())
@@ -372,9 +393,6 @@ def _count_decodes(fleet) -> list:
 def phase_fleet_path() -> dict:
     """The fleet main path on full granite-8b through the launcher's
     fleet mode; returns the kernels' launch counts of this run."""
-    from repro_torch.kernels import bfio_swap as bs
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import rms_norm as rk
     from repro_torch.launch.serve import (build_parser, make_fleet,
                                           make_model, serve_fleet)
     args = build_parser().parse_args(
@@ -389,13 +407,9 @@ def phase_fleet_path() -> dict:
     init_s = time.perf_counter() - t0
     fleet = built["fleet"]
     decodes = _count_decodes(fleet)
-    rk.rms_norm.launches = 0
-    pa.paged_decode_attention.launches = 0
-    bs.swap_best.launches = 0
+    launches = _zero_and_read(None)
     out = serve_fleet(args, built=built)
-    launches = {"rms_norm": rk.rms_norm.launches,
-                "paged_decode_attention": pa.paged_decode_attention.launches,
-                "bfio_swap": bs.swap_best.launches}
+    launches = _zero_and_read(launches)
     stats, meas = out["stats"], out["measured"]
     reqs = fleet.requests
     check(len(reqs) == 64 and all(r.done and not r.failed for r in reqs),
@@ -409,8 +423,9 @@ def phase_fleet_path() -> dict:
     n_route = meas["routing_steps"]
     swap_iters = fleet.router.swap_iters
     check(n_dec > 0 and n_route > 0, "fleet path: no decode or no routing")
-    check(all(v > 0 for v in launches.values()),
-          f"fleet path: a kernel never launched: {launches}")
+    check(all(launches[k] > 0 for k in ("rms_norm", "paged_decode_attention",
+                                         "bfio_swap")),
+          f"fleet path: a kernel of the path never launched: {launches}")
     check(launches["bfio_swap"] >= swap_iters * n_route,
           f"fleet path: swap kernel launched {launches['bfio_swap']} "
           f"times over {n_route} routing steps, need >= {swap_iters} "
@@ -442,8 +457,310 @@ def phase_fleet_path() -> dict:
           f"barrier idle), {stats['energy_per_token']:.3f} J/tok, "
           f"cross-replica imbalance {stats['avg_cross_imbalance']:.2f}")
     del out, built, fleet, params
-    torch.cuda.empty_cache()
+    _free()
     return launches
+
+
+def _decode_case(dev, flush, B, Hq, Hkv, hd, L, *, mode, window=0, seed):
+    """K3 on one bf16 case: against plain, timed beside its byte bound,
+    the plain version and SDPA on the same contiguous cache (the expanded
+    (B, Hq, L, hd) layout SDPA wants is built untimed) with a boolean mask
+    of each row's live span."""
+    from repro_torch.kernels import decode_attention as da
+    rng = np.random.default_rng(seed)
+    if mode == "rolling":
+        lens = rng.integers(L + 1, 3 * L, size=B)
+    else:
+        lens = rng.integers(1, L + 1, size=B)
+        lens[0], lens[1] = 1, L
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Hq, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, L, Hkv, hd), generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn((B, L, Hkv, hd), generator=g,
+                    device=dev).to(torch.bfloat16)
+    ln = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    kw = dict(sliding_window=window, rolling=mode == "rolling")
+    got = da.decode_attention(q, k, v, ln, **kw)
+    want = da.decode_attention_plain(q, k, v, ln, **kw)
+    err = compare(f"decode_attention {mode}", got, want)
+    ms = time_ms(lambda: da.decode_attention(q, k, v, ln, **kw), flush=flush)
+    plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, ln, **kw),
+                       flush=flush)
+    lo, hi = da.live_span(ln, L, **kw)
+    pos = torch.arange(L, device=dev)[None, :]
+    mask = ((pos >= lo[:, None]) & (pos < hi[:, None]))[:, None, None, :]
+    G = Hq // Hkv
+    kc = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+    vc = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+    q4 = q[:, :, None, :]
+    lib = torch.nn.functional.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask)
+    compare(f"sdpa yardstick {mode}", lib[:, :, 0], want)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask), flush=flush)
+    tok = int((hi - lo).sum().item())
+    nbytes = 2 * tok * Hkv * hd * 2 + 2 * B * Hq * hd * 2 + B * 4
+    b_ms, b_by = bound(nbytes, 4.0 * Hq * hd * tok)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, live_tokens=tok,
+                shape=f"{mode}: B={B} Hq={Hq} Hkv={Hkv} hd={hd} L={L}"
+                      + (f" window={window}" if window else "") + " bf16")
+
+
+def phase_decode_attention(dev, flush):
+    """K3 at granite-8b's slot shape (the row's numbers), zamba2's shape,
+    a rolling cache with lengths past L and a sliding window."""
+    cases = [
+        _decode_case(dev, flush, 32, 32, 8, 128, 256, mode="causal",
+                     seed=21),
+        _decode_case(dev, flush, 32, 32, 32, 64, 256, mode="causal",
+                     seed=22),
+        _decode_case(dev, flush, 32, 32, 8, 128, 256, mode="rolling",
+                     seed=23),
+        _decode_case(dev, flush, 32, 32, 8, 128, 256, mode="window",
+                     window=96, seed=24),
+    ]
+    for c in cases:
+        print(f"kernel decode_attention [{c['shape']}, {c['live_tokens']} "
+              f"live tokens]: {c['ms'] * 1e3:.2f} us (bound "
+              f"{c['bound_ms'] * 1e3:.2f} us by {c['bound_by']}), plain "
+              f"{c['plain_ms'] * 1e3:.2f} us, SDPA "
+              f"{c['library_ms'] * 1e3:.2f} us, max abs err "
+              f"{c['max_abs_err']:.3e}")
+    main = cases[0]
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:75",
+                **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms", "shape")},
+                max_abs_err_all=max(c["max_abs_err"] for c in cases),
+                cases=[{k: c[k] for k in ("shape", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "max_abs_err")}
+                       for c in cases[1:]])
+
+
+def _ssm_case(dev, flush, B, S, H, dk, dv, chunk, *, seed):
+    """K5 on float32 inputs (the reference's fixture: a <= 0, g >= 0),
+    through ``ops.ssm_chunk_scan`` (which pads a ragged S), against the
+    plain version on the same padded inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (torch.randn((B, S, H, dk), generator=g, device=dev)
+            for _ in "qk")
+    v = torch.randn((B, S, H, dv), generator=g, device=dev)
+    a = -torch.randn((B, S, H), generator=g, device=dev).abs()
+    gi = torch.randn((B, S, H), generator=g, device=dev).abs()
+    pad = (-S) % chunk
+    Sp = S + pad
+
+    def padseq(x):
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+
+    y, st = ops.ssm_chunk_scan(q, k, v, a, gi, chunk=chunk)
+    padded = [padseq(x) for x in (q, k, v, a, gi)]
+    y0, st0 = ss.ssm_chunk_scan_plain(*padded, chunk=chunk)
+    tol = dict(atol=1e-3, rtol=1e-3)
+    err = max(compare("ssm_chunk_scan y", y, y0[:, :S], tol),
+              compare("ssm_chunk_scan state", st, st0, tol))
+    ms = time_ms(lambda: ss.ssm_chunk_scan(*padded, chunk=chunk),
+                 flush=flush)
+    plain_ms = time_ms(lambda: ss.ssm_chunk_scan_plain(*padded, chunk=chunk),
+                       flush=flush)
+    # bytes: q, k, v, a, g read once, y and the state written once;
+    # operations: the chunked form's multiply-adds (lower-triangle scores
+    # and W v, q . S_prev and the state update), two flops each
+    nc = Sp // chunk
+    tri = chunk * (chunk + 1) // 2
+    fma = B * H * nc * (tri * (dk + dv) + 2 * chunk * dk * dv)
+    nbytes = 4 * (B * Sp * H * (2 * dk + 2 * dv + 2) + B * H * dk * dv)
+    b_ms, b_by = bound(nbytes, 2.0 * fma)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shape=f"B={B} S={S}" + (f" (padded to {Sp})" if pad else "")
+                      + f" H={H} dk={dk} dv={dv} chunk={chunk} f32")
+
+
+def phase_ssm_scan(dev, flush):
+    """K5 at zamba2's prefill shape (the row's numbers), xlstm's mLSTM
+    shape and a ragged S."""
+    cases = [
+        _ssm_case(dev, flush, 32, 64, 32, 64, 128, 64, seed=31),
+        _ssm_case(dev, flush, 32, 64, 4, 512, 513, 64, seed=32),
+        _ssm_case(dev, flush, 8, 100, 32, 64, 128, 64, seed=33),
+    ]
+    for c in cases:
+        print(f"kernel ssm_chunk_scan [{c['shape']}]: {c['ms'] * 1e3:.2f} us"
+              f" (bound {c['bound_ms'] * 1e3:.2f} us by {c['bound_by']}), "
+              f"plain {c['plain_ms'] * 1e3:.2f} us, library none, max abs "
+              f"err {c['max_abs_err']:.3e}")
+    main = cases[0]
+    return dict(name="ssm_chunk_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+                replaces="src/repro/kernels/ssm_scan.py:73",
+                **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms", "shape")},
+                max_abs_err_all=max(c["max_abs_err"] for c in cases),
+                cases=[{k: c[k] for k in ("shape", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "max_abs_err")}
+                       for c in cases[1:]])
+
+
+def phase_cross_device_slot(dev):
+    """The slot backend on the CPU and on the card, same float32 weights
+    and stream (12 requests over 8 slots: a full-batch wave, then a
+    compact one): stats and generations equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_policy
+    from repro_torch.launch.serve import submit_requests
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    out = []
+    for arch, kw in (("granite-8b", {}), ("granite-8b", {"prefill_chunk": 32}),
+                     ("zamba2-1.2b", {}), ("xlstm-350m", {})):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        p_cpu = init_params(cfg, 0, device="cpu")
+        p_dev = _tree_to(p_cpu, dev)
+        ec = EngineConfig(n_workers=2, slots_per_worker=4, max_seq_len=256,
+                          cache_backend="slot", **kw)
+        runs = []
+        for params, d in ((p_cpu, "cpu"), (p_dev, dev)):
+            eng = ServingEngine(cfg, params, ec, make_policy("bfio_h8"),
+                                device=d)
+            reqs = submit_requests(eng, 12, 8, seed=5)
+            stats = eng.run()
+            runs.append((stats, [r.generated for r in reqs]))
+        what = f"{cfg.name}" + (" chunked" if kw else "")
+        check(runs[0][0] == runs[1][0],
+              f"cross-device slot {what}: engine stats differ "
+              f"{runs[0][0]} vs {runs[1][0]}")
+        check(runs[0][1] == runs[1][1],
+              f"cross-device slot {what}: generations on the card differ "
+              f"from the CPU plain path")
+        out.append((what, runs[1][0]["tokens"]))
+    return out
+
+
+def _stack_counts(cfg) -> dict:
+    """Per-token kernel sites of one forward pass: attention applications
+    (K3 in decode), scan blocks (K5 in prefill) and RMS norms (K2)."""
+    from repro_torch.models import layer_pattern
+    n = {"attn": 0, "scan": 0, "norm": 1}          # final norm
+    for _, kind, k in layer_pattern(cfg):
+        n["norm"] += 2 * k
+        if kind in ("attn", "shared_attn"):
+            n["attn"] += k
+        elif kind in ("mamba", "mlstm"):
+            n["scan"] += k
+    return n
+
+
+def phase_slot_path(arch: str, n_requests: int) -> dict:
+    """One full-width slot path through the launcher; returns the five
+    kernels' launch counts of the run."""
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.launch.serve import build_parser, make_engine, serve
+    args = build_parser().parse_args(
+        ["--arch", arch, "--policy", "bfio_h8", "--cache-backend", "slot",
+         "--workers", "4", "--slots", "8", "--requests", str(n_requests),
+         "--max-new", "16", "--seed", "0"])
+    _free()
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = make_engine(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefills = [0]
+    inner = engine_mod.prefill_fn
+
+    def counted(*a, **kw):
+        prefills[0] += 1
+        return inner(*a, **kw)
+    engine_mod.prefill_fn = counted
+    launches = _zero_and_read(None)
+    try:
+        out = serve(args, eng)
+    finally:
+        engine_mod.prefill_fn = inner
+    launches = _zero_and_read(launches)
+    stats, meas, reqs = out["stats"], out["measured"], out["requests"]
+    cfg = eng.cfg
+    what = f"slot path {cfg.name}"
+    check(all(r.done and not r.failed for r in reqs),
+          f"{what}: not every request finished")
+    check(all(len(r.generated) == args.max_new for r in reqs),
+          f"{what}: a request generated the wrong number of tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"{what}: token id out of range")
+    n_dec, n_pre = meas["decoded_steps"], prefills[0]
+    sites = _stack_counts(cfg)
+    check(n_dec > 0 and n_pre > 0, f"{what}: no decode or no prefill ran")
+    need = {"rms_norm": sites["norm"] * n_dec,
+            "decode_attention": sites["attn"] * n_dec,
+            "ssm_chunk_scan": sites["scan"] * n_pre}
+    for name, lo in need.items():
+        check(launches[name] >= lo,
+              f"{what}: {name} launched {launches[name]} times, need >= "
+              f"{lo}")
+        check(lo == 0 or launches[name] > 0,
+              f"{what}: {name} never launched")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{what}: {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.dtype}), init {init_s:.2f} s; {len(reqs)} requests, "
+          f"{stats['tokens']} tokens, {meas['steps']} steps ({n_dec} with "
+          f"decode), {n_pre} prefill calls; launches {launches}")
+    print(f"{what} MEASURED on {meas['device']}: wall {meas['wall_s']:.3f} "
+          f"s, decode step {meas['decode_step_ms']:.2f} ms (mean of "
+          f"{meas['decode_phase_steps']} decode-only steps), "
+          f"{meas['tokens_per_s']:.1f} tok/s, peak memory {peak:.2f} GB "
+          f"({base:.2f} GB held when the path started)")
+    print(f"{what} MODELLED (engine stats, A100 power model): time "
+          f"{stats['time_s']:.4f} s, {stats['throughput_tok_s']:.1f} tok/s,"
+          f" energy {stats['energy_j']:.2f} J, avg imbalance "
+          f"{stats['avg_imbalance']:.2f}")
+    del eng, out, reqs
+    _free()
+    return launches
+
+
+def _free() -> None:
+    """Release a finished path's device memory: the wrapped ``decode``
+    methods of the fleet's counting hook form reference cycles, so
+    collect them before emptying the allocator's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _wrappers() -> dict:
+    """The five kernel wrappers, each with its ``launches`` counter."""
+    from repro_torch.kernels import bfio_swap as bs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rms_norm as rk
+    from repro_torch.kernels import ssm_scan as ss
+    return {"rms_norm": rk.rms_norm,
+            "paged_decode_attention": pa.paged_decode_attention,
+            "bfio_swap": bs.swap_best,
+            "decode_attention": da.decode_attention,
+            "ssm_chunk_scan": ss.ssm_chunk_scan}
+
+
+def _zero_and_read(before):
+    """``before is None``: zero every launch counter (just before a path).
+    Otherwise return the counts since (just after it)."""
+    ws = _wrappers()
+    if before is None:
+        for w in ws.values():
+            w.launches = 0
+        return {}
+    return {name: w.launches for name, w in ws.items()}
 
 
 def _tree_to(tree, dev):
@@ -468,10 +785,7 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    from repro_torch.kernels import bfio_swap as bs
     from repro_torch.kernels import build
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import rms_norm as rk
     t0 = time.perf_counter()
     build.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.2f} s for "
@@ -483,13 +797,15 @@ def main() -> None:
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     kernels = [phase_rms_norm(dev, flush), phase_paged_attention(dev, flush)]
-    del flush
     for k in kernels:
         print(f"kernel {k['name']} [{k['shape']}]: {k['ms'] * 1e3:.2f} us "
               f"(bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}), "
               f"plain {k['plain_ms'] * 1e3:.2f} us, library "
               f"{k['library_ms'] * 1e3:.2f} us, max abs err "
               f"{k['max_abs_err']:.3e}")
+    kernels.append(phase_decode_attention(dev, flush))
+    kernels.append(phase_ssm_scan(dev, flush))
+    del flush
 
     kernels.append(phase_bfio_swap(dev))
 
@@ -501,6 +817,9 @@ def main() -> None:
               f"{toks} tokens, {rows} telemetry steps, {handoffs} drain "
               f"handoffs; stats, telemetry and generations equal on cpu "
               f"and the card")
+    for what, toks in phase_cross_device_slot(dev):
+        print(f"cross-device slot: {what} f32, {toks} tokens, stats and "
+              f"generations equal on cpu and the card")
 
     from repro_torch.launch.serve import build_parser, make_engine, serve
     args = build_parser().parse_args(
@@ -511,13 +830,9 @@ def main() -> None:
     eng = make_engine(args)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rk.rms_norm.launches = 0
-    pa.paged_decode_attention.launches = 0
-    bs.swap_best.launches = 0
+    launches = _zero_and_read(None)
     out = serve(args, eng)
-    launches = {"rms_norm": rk.rms_norm.launches,
-                "paged_decode_attention": pa.paged_decode_attention.launches,
-                "bfio_swap": bs.swap_best.launches}
+    launches = _zero_and_read(launches)
     stats, meas, reqs = out["stats"], out["measured"], out["requests"]
     check(all(r.done and not r.failed for r in reqs),
           "main path: not every request finished")
@@ -553,22 +868,25 @@ def main() -> None:
 
     del eng, out, reqs
     torch.cuda.empty_cache()
-    fleet_launches = phase_fleet_path()
+    paths = {"engine": launches, "fleet": phase_fleet_path(),
+             "slot_granite": phase_slot_path("granite-8b", 32),
+             "slot_zamba2": phase_slot_path("zamba2-1.2b", 32),
+             "slot_xlstm": phase_slot_path("xlstm-350m", 8)}
 
     rows = []
     for k in kernels:
         row = {key: k[key] for key in (
             "name", "route", "source", "replaces")}
-        by_path = {"engine": launches.get(k["name"], 0),
-                   "fleet": fleet_launches[k["name"]]}
+        by_path = {p: counts[k["name"]] for p, counts in paths.items()}
         row["launches"] = sum(by_path.values())
         row.update({key: k[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")})
         row["launches_by_path"] = by_path
         row["matched"] = True
-        row.update({key: k[key] for key in ("kernel_only_ms",
-                                            "at_pod_scale") if key in k})
+        row.update({key: k[key] for key in (
+            "kernel_only_ms", "at_pod_scale", "shape", "max_abs_err_all",
+            "cases") if key in k})
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

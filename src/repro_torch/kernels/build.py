@@ -24,7 +24,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "build_all", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rms_norm.cu", "paged_attention.cu", "bfio_swap.cu")
+SOURCES = ("rms_norm.cu", "paged_attention.cu", "bfio_swap.cu",
+           "decode_attention.cu", "ssm_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

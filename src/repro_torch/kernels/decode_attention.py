@@ -1,0 +1,141 @@
+"""One-token GQA decode attention over a contiguous per-slot KV cache.
+
+Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py:
+decode_attention_pallas`` and carries the two masks the reference's model
+function (``repro/models/attention.py: decode_attention``) adds to it: a
+sliding window and a rolling (ring-buffer) cache.  On an H100 the kernel
+(``csrc/decode_attention.cu``) is bound by memory bytes: it must read each
+live K/V row once, and its arithmetic (4 * G * hd flops per K/V row pair)
+is far below the card's flops-per-byte ratio.  Its design: one block per
+(row, KV head), the G query heads of that KV head sharing every K/V tile
+staged in shared memory with 16-byte loads; each row walks only its live
+span (the Pallas grid walks every ``blk_l`` tile of L); one warp per token
+for the scores (lanes split hd), one warp per query head for the online
+softmax, fp32 throughout.  The pre-scaled query is rounded to the cache
+dtype, as the plain version does.
+
+Each row's live span is ``[lo, hi)`` with ``hi = min(len, L)`` and
+``lo = max(0, len - window)`` for a (non-rolling) sliding window, else 0.
+A row whose span is empty (``len == 0``, which the engine's decode never
+produces) writes zeros in both versions.
+
+:func:`decode_attention` is the wrapper: on a CPU tensor it runs
+:func:`decode_attention_plain`; on a CUDA tensor it launches the kernel or
+raises.  ``decode_attention.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["decode_attention", "decode_attention_plain", "live_span"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NEG = -1e30
+
+
+def live_span(lengths: torch.Tensor, L: int, *, sliding_window: int = 0,
+              rolling: bool = False):
+    """Per-row attended cache positions ``[lo, hi)`` as (B,) int64."""
+    lens = lengths.long()
+    hi = lens.clamp(0, L)
+    if rolling or not sliding_window:
+        lo = torch.zeros_like(hi)
+    else:
+        lo = (lens - sliding_window).clamp(min=0)
+    return lo, hi
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths, *,
+                           sliding_window: int = 0, rolling: bool = False):
+    """Plain PyTorch version of the kernel and the port's CPU path.
+
+    q: (B, Hq, hd); k_cache, v_cache: (B, L, Hkv, hd); lengths: (B,) —
+    tokens so far *including* the new one (whose KV is already written).
+    ``rolling`` marks a ring-buffer cache: every slot is valid once
+    ``lengths >= L``.  Otherwise positions ``< lengths`` are attended,
+    limited to the last ``sliding_window`` when one is set.  The
+    pre-scaled query and the probabilities are rounded to the cache dtype
+    before fp32-accumulated products, as in the reference."""
+    b, hq, hd = q.shape
+    L, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), device=q.device))
+    qf = (q.reshape(b, hkv, g, hd).float() * scale).to(k_cache.dtype)
+    s = torch.einsum("bhgd,blhd->bhgl", qf.float(), k_cache.float())
+    lo, hi = live_span(lengths.to(q.device), L,
+                       sliding_window=sliding_window, rolling=rolling)
+    pos = torch.arange(L, device=q.device)[None, :]
+    mask = (pos >= lo[:, None]) & (pos < hi[:, None])
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgl,blhd->bhgd", p.float(), v_cache.float())
+    out = out.reshape(b, hq, hd).to(q.dtype)
+    live = (hi > lo)[:, None, None]
+    return torch.where(live, out, torch.zeros_like(out))
+
+
+def _lib():
+    from .build import load
+    lib = load("decode_attention.cu")
+    fn = lib.decode_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     sliding_window: int = 0,
+                     rolling: bool = False) -> torch.Tensor:
+    """q: (B, Hq, hd); k_cache/v_cache: (B, L, Hkv, hd) in q's dtype;
+    lengths: (B,) int32.  Returns (B, Hq, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, lengths,
+                                      sliding_window=sliding_window,
+                                      rolling=rolling)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    B, Hq, hd = q.shape
+    Bk, L, Hkv, hd_k = k_cache.shape
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"decode_attention kernel takes matching "
+                        f"float32/bfloat16 q and caches, got {q.dtype}, "
+                        f"{k_cache.dtype}, {v_cache.dtype}")
+    if v_cache.shape != k_cache.shape or hd_k != hd or Bk != B:
+        raise ValueError(f"decode_attention: cache shape "
+                         f"{tuple(k_cache.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    G = Hq // Hkv if Hkv else 0
+    if Hkv == 0 or Hq % Hkv or hd % 8 or G > 8 or G * hd > 2048:
+        raise ValueError(f"decode_attention kernel needs Hq % Hkv == 0, "
+                         f"G <= 8, hd % 8 == 0 and G * hd <= 2048 (Hq={Hq},"
+                         f" Hkv={Hkv}, hd={hd})")
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise TypeError("decode_attention: lengths must be (B,) int32")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lengths", lengths)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} must be contiguous "
+                             f"on {q.device}")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention: caches must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    rc = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, L,
+                int(sliding_window), int(bool(rolling)), _DTYPES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

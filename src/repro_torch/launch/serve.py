@@ -1,6 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>
---policy bfio_h8 --cache-backend paged`` — drives the BF-IO-routed
-multi-worker engine end to end on one card.
+--policy bfio_h8 [--cache-backend slot|paged]`` — drives the BF-IO-routed
+multi-worker engine end to end on one card.  The slot backend (the
+default) serves the dense, ssm (xlstm-350m) and hybrid (zamba2-1.2b)
+families; the paged backend serves the dense family.
 
 Without ``--smoke`` the full configuration runs in its own dtype (bf16)
 on ``cuda``; ``--smoke`` takes the reduced same-family variant, and
@@ -76,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cache-backend", default="slot",
                     choices=["slot", "paged"],
-                    help="KV layout (only 'paged' is ported)")
+                    help="KV layout: 'slot' (contiguous per-slot rows, "
+                         "every ported family) or 'paged' (vLLM blocks, "
+                         "attention-family models)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: max prompt tokens per request "
                          "per step (0 = synchronous)")

@@ -1,9 +1,11 @@
-"""Model substrate: layers, attention, and the dense decoder assembly
-(init / prefill / chunked prefill / paged decode), plus the weight bridge
-from the reference package."""
+"""Model substrate: layers, attention, the recurrent cores (``ssm``) and
+the model assembly for the dense, ssm and hybrid families (init / prefill
+/ decode / chunked prefill / paged decode), plus the weight bridge from
+the reference package."""
 from .bridge import params_from_numpy  # noqa: F401
 from .transformer import (  # noqa: F401
     chunk_prefill_fn,
+    decode_fn,
     init_cache,
     init_params,
     layer_pattern,

@@ -6,15 +6,20 @@ the einsums so K/V are never expanded to Hq width.  The reference runs
 prefill as a blocked online-softmax scan in jnp (no Pallas kernel, so
 there is nothing to port as a kernel); here prefill is a direct fp32
 masked softmax with the same masks, which is exact in arithmetic but not
-in rounding order.  One-token decode over the paged pool has its own
-kernel (:mod:`repro_torch.kernels.paged_attention`); :func:`decode_attention`
-is the contiguous-view oracle the ``"gather"`` paged path reuses.
+in rounding order.  One-token decode has kernels: over the paged pool
+(:mod:`repro_torch.kernels.paged_attention`) and over a contiguous cache
+(:func:`decode_attention`, which runs
+:mod:`repro_torch.kernels.decode_attention` — the Hopper kernel on a CUDA
+tensor, its plain version on a CPU tensor; the ``"gather"`` paged path
+reuses it on a gathered view).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from ..kernels import ops
 
 __all__ = ["causal_attention", "chunk_attention", "decode_attention"]
 
@@ -82,22 +87,18 @@ def chunk_attention(q, k_cache, v_cache, *, q_pos, kv_len):
     return out.to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
-    """One-token attention against a contiguous KV view.
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     sliding_window: int = 0, rolling: bool = False):
+    """One-token attention against a contiguous KV cache.
 
-    q: (B, Hq, hd); k_cache, v_cache: (B, L, Hkv, hd); lengths: (B,) —
-    tokens so far *including* the new one (whose KV is already written).
+    q: (B, Hq, hd); k_cache, v_cache: (B, L, Hkv, hd); lengths: (B,) int32
+    — tokens so far *including* the new one (whose KV is already written).
+    ``rolling=True`` marks a ring-buffer cache (sliding-window archs): all
+    L slots are valid once lengths >= L, and positional correctness comes
+    from RoPE applied at write time.  Otherwise positions ``< lengths``
+    are attended, the last ``sliding_window`` of them when one is set.
     The pre-scaled query and the probabilities are rounded to the cache
     dtype before fp32-accumulated products, as in the reference."""
-    b, hq, hd = q.shape
-    L, hkv = k_cache.shape[1], k_cache.shape[2]
-    g = hq // hkv
-    qf = (q.reshape(b, hkv, g, hd).float()
-          * _scale(hd, q.device)).to(k_cache.dtype)
-    s = torch.einsum("bhgd,blhd->bhgl", qf.float(), k_cache.float())
-    mask = torch.arange(L, device=q.device)[None, :] \
-        < lengths.long()[:, None]
-    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, _NEG))
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bhgl,blhd->bhgd", p.float(), v_cache.float())
-    return out.reshape(b, hq, hd).to(q.dtype)
+    return ops.decode_attention(q, k_cache, v_cache, lengths,
+                                sliding_window=sliding_window,
+                                rolling=rolling)

@@ -90,7 +90,12 @@ def apply_rope(x, sin, cos):
 
 def linear(x, w, b=None):
     """x @ w (+ b), contracting x's last dim with w's first dim; ``w`` may
-    carry extra trailing dims (e.g. (d, heads, hd)), kept in the output."""
+    carry extra trailing dims (e.g. (d, heads, hd)), kept in the output.
+    Mixed dtypes promote, as the reference's einsum does (mLSTM's float32
+    gate weights on bf16 activations)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     out = x @ w.reshape(w.shape[0], -1)
     out = out.reshape(x.shape[:-1] + w.shape[1:])
     if b is not None:

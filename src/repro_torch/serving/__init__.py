@@ -1,7 +1,7 @@
 """Serving runtime: the multi-worker decode engine with router-integrated
-load balancing, the paged KV backend (vLLM-style blocks with prefix
-caching), and the admission scheduler with chunked prefill and
-preemption under memory pressure."""
+load balancing, the contiguous slot and paged KV backends (the paged one
+vLLM-style blocks with prefix caching), and the admission scheduler with
+chunked prefill and preemption under memory pressure."""
 from .engine import (  # noqa: F401
     EngineConfig,
     LoadSnapshot,
@@ -11,6 +11,7 @@ from .engine import (  # noqa: F401
 from .cache_backend import (  # noqa: F401
     CacheBackend,
     PagedCacheBackend,
+    SlotCacheBackend,
     make_cache_backend,
 )
 from .paged_cache import BlockAllocator, PagedKVCache, PrefixIndex  # noqa: F401

@@ -7,14 +7,24 @@ release a finished slot.  :class:`CacheBackend` is that seam; the engine
 (:mod:`repro_torch.serving.engine`) owns scheduling and request
 bookkeeping and never touches cache layout.
 
-This slice ports :class:`PagedCacheBackend` (``"paged"``) — vLLM-style
-paging over :class:`~repro_torch.serving.paged_cache.PagedKVCache`: fixed
-size KV blocks from a shared pool, per-slot block tables, resident KV
-proportional to *actual* tokens.  Decode runs through
-:func:`repro_torch.models.paged_decode_fn` with the configured attention
-(``"kernel"`` by default: the Hopper paged-attention kernel on the card).
-The contiguous ``"slot"`` backend is not ported yet (ROADMAP Queue A item
-6, with kernel K3).
+Two implementations, selected by ``EngineConfig.cache_backend``:
+
+* :class:`SlotCacheBackend` (``"slot"``) — the contiguous per-slot layout:
+  one flat ``init_cache`` tree over all ``G * B`` slots, compact decode by
+  gather/scatter of whole cache rows.  Simple, but reserves
+  ``max_seq_len`` KV per slot forever and copies full rows to compact.
+  It serves every ported family (dense, ssm, hybrid); its decode runs
+  :func:`repro_torch.models.decode_fn`, whose attention is the Hopper
+  contiguous decode-attention kernel and whose Mamba2/mLSTM prefill scan
+  is the chunked-scan kernel on the card.
+* :class:`PagedCacheBackend` (``"paged"``) — vLLM-style paging over
+  :class:`~repro_torch.serving.paged_cache.PagedKVCache`: fixed size KV
+  blocks from a shared pool, per-slot block tables, resident KV
+  proportional to *actual* tokens.  Decode runs through
+  :func:`repro_torch.models.paged_decode_fn` with the configured
+  attention (``"kernel"`` by default: the Hopper paged-attention kernel
+  on the card).  Attention-family models only — recurrent-state families
+  have no paged layout.
 
 The contract the engine relies on:
 
@@ -38,6 +48,9 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..models import (
+    chunk_prefill_fn,
+    decode_fn,
+    init_cache,
     paged_chunk_prefill_fn,
     paged_decode_fn,
     supports_paged_stack,
@@ -46,7 +59,72 @@ from ..models import (
 from .paged_cache import PagedKVCache, PrefixIndex
 from .preemption import PreemptedState, swap_in_blocks, swap_out_blocks
 
-__all__ = ["CacheBackend", "PagedCacheBackend", "make_cache_backend"]
+__all__ = ["CacheBackend", "SlotCacheBackend", "PagedCacheBackend",
+           "make_cache_backend", "gather_rows", "scatter_rows"]
+
+
+# ----------------------------------------------------------------------
+# Row gather/scatter over a cache tree (dicts of tensors; the sLSTM state
+# is a tuple).  Batch is dim 0 of the 1-d ``lengths`` and dim 1 of every
+# stacked (layers, batch, ...) leaf.
+# ----------------------------------------------------------------------
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def gather_rows(cache, idx: torch.Tensor):
+    """A copy of cache rows ``idx`` (int64 on the cache's device)."""
+    return _tree_map(lambda a: a[idx] if a.dim() == 1 else a[:, idx],
+                     cache)
+
+
+def scatter_rows(cache, sub, dst: torch.Tensor) -> None:
+    """Write sub-batch rows back at ``dst`` IN PLACE.  Entries of ``dst``
+    past the last row (``dst == N``) are padding whose writes are dropped,
+    as JAX drops the reference's out-of-bounds scatter."""
+    keep = dst < cache["lengths"].shape[0]
+    rows, dst = keep.nonzero(as_tuple=True)[0], dst[keep]
+
+    def put(full, part):
+        if full.dim() == 1:
+            full[dst] = part[rows].to(full.dtype)
+        else:
+            full[:, dst] = part[:, rows].to(full.dtype)
+    _tree_map(put, cache, sub)
+
+
+def _install(cache, mini, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Copy rows ``src`` of the prefill mini cache into slots ``dst`` of
+    the flat cache, IN PLACE.  The mini cache may carry a shorter
+    kv-length dim (prefill pad), zero-padded up to the flat cache's."""
+    def copy(dst_leaf, src_leaf):
+        if dst_leaf.dim() == 1:          # lengths
+            dst_leaf[dst] = src_leaf[src].to(dst_leaf.dtype)
+            return
+        s = src_leaf[:, src]
+        tail = dst_leaf.shape[2:]
+        if s.shape[2:] != tail:
+            pads = []
+            for i in reversed(range(len(tail))):
+                pads += [0, tail[i] - s.shape[2 + i]]
+            s = F.pad(s, pads)
+        dst_leaf[:, dst] = s.to(dst_leaf.dtype)
+    _tree_map(copy, cache, mini)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 # ----------------------------------------------------------------------
@@ -100,6 +178,82 @@ class CacheBackend(abc.ABC):
     @abc.abstractmethod
     def resident_kv_bytes(self) -> int:
         """Bytes of KV currently held for live requests."""
+
+
+# ----------------------------------------------------------------------
+# Contiguous per-slot backend
+# ----------------------------------------------------------------------
+
+class SlotCacheBackend(CacheBackend):
+    """Contiguous per-slot cache: one flat :func:`~repro_torch.models.
+    init_cache` tree over all N slots on ``device``, compact decode via
+    gather/scatter of whole cache rows.
+
+    The flat cache is updated IN PLACE by every call (the reference
+    donates it to its jitted calls and rebinds the result): prefill rows
+    are copied into their slots, full-batch decode writes straight into
+    it, compact decode and chunked prefill gather the rows they run,
+    update that copy and scatter it back (padding rows carry ``dst == N``
+    and are dropped)."""
+
+    name = "slot"
+
+    def __init__(self, cfg: ModelConfig, params, ec, device):
+        self.cfg = cfg
+        self.params = params
+        self.device = torch.device(device)
+        self.N = ec.n_workers * ec.slots_per_worker
+        self.cache = init_cache(cfg, self.N, ec.max_seq_len,
+                                device=self.device)
+        self._bytes = int(sum(a.nbytes for a in _leaves(self.cache)))
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def write_prefill(self, mini_cache, src, dst, tokens=None,
+                      chains=None) -> None:
+        """One gather/scatter per cache leaf over the whole admitted batch
+        (see :func:`_install`).  ``tokens``/``chains`` are unused (the
+        contiguous layout is not content-addressed)."""
+        _install(self.cache, mini_cache,
+                 self._dev(np.asarray(src, np.int64)),
+                 self._dev(np.asarray(dst, np.int64)))
+
+    def prefill_chunk(self, toks, offs, clens, slots) -> np.ndarray:
+        idx = self._dev(np.maximum(slots, 0).astype(np.int64))
+        dst = self._dev(np.where(slots >= 0, slots, self.N).astype(np.int64))
+        sub = gather_rows(self.cache, idx)
+        logits, sub = chunk_prefill_fn(         # sub updated in place
+            self.cfg, self.params, sub, self._dev(toks.astype(np.int32)),
+            self._dev(offs.astype(np.int32)),
+            self._dev(clens.astype(np.int32)))
+        scatter_rows(self.cache, sub, dst)
+        return logits.float().cpu().numpy()
+
+    def decode(self, slot_tokens, active_idx, bucket) -> np.ndarray:
+        n = active_idx.size
+        if bucket >= self.N:
+            logits, _ = decode_fn(self.cfg, self.params, self.cache,
+                                  self._dev(slot_tokens.astype(np.int32)))
+            nxt_all = logits.argmax(-1).to(torch.int32).cpu().numpy()
+            return nxt_all[active_idx]
+        idx = np.zeros(bucket, dtype=np.int64)
+        idx[:n] = active_idx
+        dst = np.full(bucket, self.N, dtype=np.int64)   # pads: dropped
+        dst[:n] = active_idx
+        sub = gather_rows(self.cache, self._dev(idx))
+        logits, sub = decode_fn(self.cfg, self.params, sub,
+                                self._dev(slot_tokens[idx].astype(np.int32)))
+        scatter_rows(self.cache, sub, self._dev(dst))
+        return logits.argmax(-1).to(torch.int32).cpu().numpy()[:n]
+
+    def release(self, slots) -> None:
+        # rows are simply abandoned in place (stale state is masked by
+        # lengths, or overwritten, by the next occupant's prefill)
+        pass
+
+    def resident_kv_bytes(self) -> int:
+        return self._bytes
 
 
 # ----------------------------------------------------------------------
@@ -457,9 +611,6 @@ def make_cache_backend(name: str, cfg: ModelConfig, params, ec,
     if name == "paged":
         return PagedCacheBackend(cfg, params, ec, device)
     if name == "slot":
-        raise NotImplementedError(
-            "cache_backend='slot' is not ported yet — ROADMAP Queue A "
-            "item 6 (slot backend, with kernel K3 decode attention); use "
-            "cache_backend='paged'")
+        return SlotCacheBackend(cfg, params, ec, device)
     raise ValueError(f"unknown cache backend {name!r} "
                      "(expected 'slot' or 'paged')")

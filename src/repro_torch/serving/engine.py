@@ -21,8 +21,10 @@ deployment — that is the point of the paper.
   admission, and the chunked-prefill budget (``EngineConfig.
   prefill_chunk`` / ``prefill_budget``).
 * :class:`~repro_torch.serving.cache_backend.CacheBackend` — the memory
-  layout (``EngineConfig.cache_backend``); this slice ports ``"paged"``
-  (vLLM-style block paging whose decode runs the paged-attention kernel).
+  layout (``EngineConfig.cache_backend``): ``"slot"`` is the contiguous
+  per-slot layout (every ported family; decode runs the contiguous
+  decode-attention kernel), ``"paged"`` vLLM-style block paging whose
+  decode runs the paged-attention kernel (attention-family models only).
 
 The engine's time and energy are MODELLED, exactly as in the reference:
 ``step_overhead + t_token * max load`` priced under ``EngineConfig.
@@ -115,7 +117,7 @@ class EngineConfig:
     power: PowerModel = A100_POWER
     greedy: bool = True             # greedy sampling
     engine_mode: str = "vec"        # "vec" (array hot path); "ref" unported
-    cache_backend: str = "slot"     # "paged" (vLLM); "slot" unported
+    cache_backend: str = "slot"     # "slot" (contiguous) | "paged" (vLLM)
     # chunked prefill: 0 = synchronous (a request's whole prompt prefills
     # in its admission step); c > 0 = at most c prompt tokens per job per
     # step, interleaved with decode.  Setting only prefill_budget also
@@ -291,6 +293,16 @@ class ServingEngine:
         self._buckets = _decode_buckets(N)
 
     # ------------------------------------------------------------------
+    @property
+    def cache(self):
+        """The slot backend's flat cache tree (test access); the paged
+        backend holds pools instead."""
+        return self.backend.cache
+
+    @cache.setter
+    def cache(self, value):
+        self.backend.cache = value
+
     @property
     def wait(self) -> list:
         return self.scheduler.wait

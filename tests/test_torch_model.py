@@ -242,8 +242,20 @@ def test_init_cache_shape(models):
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "xlstm-350m",
                                   "zamba2-1.2b", "whisper-tiny"])
 def test_unported_families_raise(arch):
+    """MoE and audio are not ported and raise naming their ROADMAP item.
+    The ssm and hybrid families are ported with the slot backend (held
+    against the reference in tests/test_torch_ssm.py) and keep the
+    reference's limit: no chunked or paged path."""
+    cfg = get_smoke_config(arch)
+    if cfg.family in ("ssm", "hybrid"):
+        params = init_params(cfg, 0, device="cpu")
+        with pytest.raises(ValueError, match="attention-family"):
+            chunk_prefill_fn(cfg, params, None, None, None, None)
+        with pytest.raises(ValueError, match="attention-family"):
+            paged_decode_fn(cfg, params, *([None] * 7), block_size=8)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(get_smoke_config(arch), 0, device="cpu")
+        init_params(cfg, 0, device="cpu")
 
 
 def test_cuda_default_raises_without_a_card():
