@@ -12,16 +12,22 @@ result line):
 3. Kernel phases, at the shapes of the serving paths: the RMS-norm
    kernel (K2) on (32, 4096) bf16 and the paged decode-attention kernel
    (K1) at B=32, Hq=32, Hkv=8, hd=128, block 16, 16 blocks per row (bf16
-   pool, permuted tables, ragged lengths including 1 and 256); the
-   contiguous decode-attention kernel (K3) at granite-8b's slot shape
-   (B=32, Hq=32, Hkv=8, hd=128, L=256) and zamba2's (Hq=Hkv=32, hd=64),
-   with a rolling case (lengths past L) and a sliding-window case (bf16,
-   ragged lengths including 1 and L); each held against its plain
-   PyTorch version (bf16, atol = rtol = 2e-2).  The chunked-scan kernel
-   (K5) on float32 inputs as the models pass them, at zamba2's prefill
-   shape (B=32, S=64, H=32, dk=64, dv=128, chunk 64), at xlstm's (H=4,
-   dk=512, dv=513) and at a ragged S that ``ops.ssm_chunk_scan`` pads,
-   held against its plain version at 1e-3 (y and the final state).  The
+   pool, permuted tables, ragged lengths including 1 and 256) and at
+   granite-34b's head layout (Hq=48 over one KV head); the contiguous
+   decode-attention kernel (K3) at granite-8b's slot shape (B=32, Hq=32,
+   Hkv=8, hd=128, L=256), zamba2's (Hq=Hkv=32, hd=64) and granite-34b's
+   head layout, with a rolling case (lengths past L) and a
+   sliding-window case (bf16, ragged lengths including 1 and L); each
+   held against its plain PyTorch version (bf16, atol = rtol = 2e-2).
+   K1 and K3 are timed whole and as their split pass alone, and each
+   case prints its share of the byte bound and its ratio to SDPA; the
+   timing method's floor (a one-element add, timed the same way) is
+   printed and kept in their rows.  The
+   chunked-scan kernel (K5) on float32 inputs as the models pass them, at
+   zamba2's prefill shape (B=32, S=64, H=32, dk=64, dv=128, chunk 64), at
+   xlstm's (H=4, dk=512, dv=513) and at a ragged S that
+   ``ops.ssm_chunk_scan`` pads, held against its plain version at 1e-3 (y
+   and the final state).  The
    BF-IO swap-search kernel (K4) at the fleet router's shape (C=1, G=4,
    N=64, W=1, integer loads) and at pod scale (C=8, G=32, N=512, W=9,
    random floats, ragged ``valid``, ``assign`` with -1s), held against its
@@ -81,6 +87,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12        # bf16 on the tensor cores, dense
 TOL = dict(atol=2e-2, rtol=2e-2)
 SLEEP_CYCLES = 5_000_000        # ~2.5 ms at H100 clocks: covers enqueue
 
@@ -119,9 +126,12 @@ def time_ms(fn, reps: int = 50, warmup: int = 5, flush=None) -> float:
     return float(np.median(out))
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = H100_FP32_FLOPS) -> tuple[float, str]:
+    """The least time (ms) for the bytes and the operations, and which of
+    the two it is; ``flops_per_s`` is the peak for the operations' type."""
     tb = nbytes / H100_BYTES_PER_S * 1e3
-    tf = flops / H100_FP32_FLOPS * 1e3
+    tf = flops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -158,11 +168,14 @@ def phase_rms_norm(dev, flush):
                 shape=f"x ({R}, {d}) bf16, scale ({d},) f32")
 
 
-def phase_paged_attention(dev, flush):
+def _paged_case(dev, flush, B, Hq, Hkv, hd, bs, mb, *, seed):
+    """K1 on one bf16 case (permuted tables, ragged lengths including 1
+    and ``mb * bs``): against plain, timed whole and split pass alone
+    beside its byte bound, the plain version and SDPA over the gathered
+    contiguous view (the gather untimed)."""
     from repro_torch.kernels import paged_attention as pa
-    B, Hq, Hkv, hd, bs, mb = 32, 32, 8, 128, 16, 16
     n_pool = B * mb
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     lens = rng.integers(1, mb * bs + 1, size=B).astype(np.int32)
     lens[0], lens[1] = 1, mb * bs
     perm = rng.permutation(n_pool)
@@ -172,7 +185,7 @@ def phase_paged_attention(dev, flush):
         n = -(-int(lens[b]) // bs)
         tables[b, :n] = perm[ptr:ptr + n]
         ptr += n
-    g = torch.Generator(device=dev).manual_seed(3)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
     q = torch.randn((B, Hq, hd), generator=g, device=dev).to(torch.bfloat16)
     kp = torch.randn((n_pool, bs, Hkv, hd), generator=g,
                      device=dev).to(torch.bfloat16)
@@ -182,9 +195,11 @@ def phase_paged_attention(dev, flush):
     ln = torch.from_numpy(lens).to(dev)
     got = pa.paged_decode_attention(q, kp, vp, bt, ln, block_size=bs)
     want = pa.paged_decode_attention_plain(q, kp, vp, bt, ln, bs)
-    err = compare("paged_decode_attention", got, want)
+    err = compare(f"paged_decode_attention Hq={Hq} Hkv={Hkv}", got, want)
     ms = time_ms(lambda: pa.paged_decode_attention(
         q, kp, vp, bt, ln, block_size=bs), flush=flush)
+    kernel_ms = time_ms(lambda: pa._launch(q, kp, vp, bt, ln, merge=False),
+                        flush=flush)
     plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
         q, kp, vp, bt, ln, bs), flush=flush)
     # yardstick: SDPA over the gathered contiguous view (gather untimed)
@@ -202,18 +217,51 @@ def phase_paged_attention(dev, flush):
     compare("sdpa yardstick", lib[:, :, 0], want)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, kc, vc, attn_mask=mask), flush=flush)
+    del kc, vc
     tok = int(lens.sum())
     live_blocks = int(sum(-(-int(x) // bs) for x in lens))
     nbytes = (2 * tok * Hkv * hd * 2 + 2 * B * Hq * hd * 2
               + live_blocks * 4 + B * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * Hq * hd * tok)
+    b_ms, b_by = bound(nbytes, 4.0 * Hq * hd * tok, H100_BF16_FLOPS)
+    return dict(max_abs_err=err, ms=ms, kernel_only_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, live_tokens=tok,
+                shape=f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} block={bs} "
+                      f"max_blocks={mb} bf16, sum(len)={tok}")
+
+
+def _print_attention_cases(name, cases):
+    """One line per case: times, share of the byte bound, ratio to SDPA."""
+    for c in cases:
+        print(f"kernel {name} [{c['shape']}, {c['live_tokens']} live "
+              f"tokens]: {c['ms'] * 1e3:.2f} us (split pass alone "
+              f"{c['kernel_only_ms'] * 1e3:.2f} us; bound "
+              f"{c['bound_ms'] * 1e3:.2f} us by {c['bound_by']}, "
+              f"{100 * c['bound_ms'] / c['ms']:.1f}% of it), plain "
+              f"{c['plain_ms'] * 1e3:.2f} us, SDPA "
+              f"{c['library_ms'] * 1e3:.2f} us (kernel / SDPA "
+              f"{c['ms'] / c['library_ms']:.2f}x), max abs err "
+              f"{c['max_abs_err']:.3e}")
+
+
+_CASE_KEYS = ("shape", "ms", "kernel_only_ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms", "max_abs_err")
+
+
+def phase_paged_attention(dev, flush):
+    """K1 at the paged engine's shape (B=32, Hq=32, Hkv=8, hd=128, block
+    16, 16 blocks a row: the row's numbers) and at granite-34b's head
+    layout (Hq=48 over one KV head)."""
+    cases = [_paged_case(dev, flush, 32, 32, 8, 128, 16, 16, seed=2),
+             _paged_case(dev, flush, 32, 48, 1, 128, 16, 16, seed=4)]
+    _print_attention_cases("paged_decode_attention", cases)
+    main = cases[0]
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:71",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms,
-                shape=f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} block={bs} "
-                      f"max_blocks={mb} bf16, sum(len)={tok}")
+                **{k: main[k] for k in _CASE_KEYS},
+                max_abs_err_all=max(c["max_abs_err"] for c in cases),
+                cases=[{k: c[k] for k in _CASE_KEYS} for c in cases[1:]])
 
 
 def _swap_inputs(dev, C, G, N, W, *, seed, n_valid=None):
@@ -485,6 +533,8 @@ def _decode_case(dev, flush, B, Hq, Hkv, hd, L, *, mode, window=0, seed):
     want = da.decode_attention_plain(q, k, v, ln, **kw)
     err = compare(f"decode_attention {mode}", got, want)
     ms = time_ms(lambda: da.decode_attention(q, k, v, ln, **kw), flush=flush)
+    kernel_ms = time_ms(lambda: da._launch(q, k, v, ln, merge=False, **kw),
+                        flush=flush)
     plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, ln, **kw),
                        flush=flush)
     lo, hi = da.live_span(ln, L, **kw)
@@ -499,18 +549,21 @@ def _decode_case(dev, flush, B, Hq, Hkv, hd, L, *, mode, window=0, seed):
     compare(f"sdpa yardstick {mode}", lib[:, :, 0], want)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, kc, vc, attn_mask=mask), flush=flush)
+    del kc, vc
     tok = int((hi - lo).sum().item())
     nbytes = 2 * tok * Hkv * hd * 2 + 2 * B * Hq * hd * 2 + B * 4
-    b_ms, b_by = bound(nbytes, 4.0 * Hq * hd * tok)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, live_tokens=tok,
+    b_ms, b_by = bound(nbytes, 4.0 * Hq * hd * tok, H100_BF16_FLOPS)
+    return dict(max_abs_err=err, ms=ms, kernel_only_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, live_tokens=tok,
                 shape=f"{mode}: B={B} Hq={Hq} Hkv={Hkv} hd={hd} L={L}"
                       + (f" window={window}" if window else "") + " bf16")
 
 
 def phase_decode_attention(dev, flush):
     """K3 at granite-8b's slot shape (the row's numbers), zamba2's shape,
-    a rolling cache with lengths past L and a sliding window."""
+    a rolling cache with lengths past L, a sliding window and granite-34b's
+    head layout (Hq=48 over one KV head)."""
     cases = [
         _decode_case(dev, flush, 32, 32, 8, 128, 256, mode="causal",
                      seed=21),
@@ -520,26 +573,17 @@ def phase_decode_attention(dev, flush):
                      seed=23),
         _decode_case(dev, flush, 32, 32, 8, 128, 256, mode="window",
                      window=96, seed=24),
+        _decode_case(dev, flush, 32, 48, 1, 128, 256, mode="causal",
+                     seed=25),
     ]
-    for c in cases:
-        print(f"kernel decode_attention [{c['shape']}, {c['live_tokens']} "
-              f"live tokens]: {c['ms'] * 1e3:.2f} us (bound "
-              f"{c['bound_ms'] * 1e3:.2f} us by {c['bound_by']}), plain "
-              f"{c['plain_ms'] * 1e3:.2f} us, SDPA "
-              f"{c['library_ms'] * 1e3:.2f} us, max abs err "
-              f"{c['max_abs_err']:.3e}")
+    _print_attention_cases("decode_attention", cases)
     main = cases[0]
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:75",
-                **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by",
-                                        "library_ms", "shape")},
+                **{k: main[k] for k in _CASE_KEYS},
                 max_abs_err_all=max(c["max_abs_err"] for c in cases),
-                cases=[{k: c[k] for k in ("shape", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms", "max_abs_err")}
-                       for c in cases[1:]])
+                cases=[{k: c[k] for k in _CASE_KEYS} for c in cases[1:]])
 
 
 def _ssm_case(dev, flush, B, S, H, dk, dv, chunk, *, seed):
@@ -796,14 +840,20 @@ def main() -> None:
                 print(f"ptxas {src}: {line.strip()}")
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
-    kernels = [phase_rms_norm(dev, flush), phase_paged_attention(dev, flush)]
-    for k in kernels:
-        print(f"kernel {k['name']} [{k['shape']}]: {k['ms'] * 1e3:.2f} us "
-              f"(bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}), "
-              f"plain {k['plain_ms'] * 1e3:.2f} us, library "
-              f"{k['library_ms'] * 1e3:.2f} us, max abs err "
-              f"{k['max_abs_err']:.3e}")
-    kernels.append(phase_decode_attention(dev, flush))
+    kernels = [phase_rms_norm(dev, flush)]
+    k = kernels[0]
+    print(f"kernel {k['name']} [{k['shape']}]: {k['ms'] * 1e3:.2f} us "
+          f"(bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}), "
+          f"plain {k['plain_ms'] * 1e3:.2f} us, library "
+          f"{k['library_ms'] * 1e3:.2f} us, max abs err "
+          f"{k['max_abs_err']:.3e}")
+    # the timing method's floor: a one-element add timed as the kernels are
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: one.add_(1), flush=flush)
+    print(f"timing floor: a one-element add measures {floor_ms * 1e3:.2f} "
+          f"us by time_ms (sleep kernel, L2 flush, CUDA events)")
+    for phase in (phase_paged_attention, phase_decode_attention):
+        kernels.append(dict(phase(dev, flush), timing_floor_ms=floor_ms))
     kernels.append(phase_ssm_scan(dev, flush))
     del flush
 
@@ -886,7 +936,7 @@ def main() -> None:
         row["matched"] = True
         row.update({key: k[key] for key in (
             "kernel_only_ms", "at_pod_scale", "shape", "max_abs_err_all",
-            "cases") if key in k})
+            "cases", "timing_floor_ms") if key in k})
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ own by ``nvcc`` for ``sm_90a`` into a shared library under
 process per file, all started together); a library whose name already
 carries the hash of its source and flags is reused.  Nothing here runs at
 import time, so the CPU-only test suite imports the package without a
-CUDA toolkit.
+CUDA toolkit.  A library's name also carries the hash of every shared
+header (``csrc/*.cuh``), so an edit to a header rebuilds the sources.
 """
 from __future__ import annotations
 
@@ -57,6 +58,9 @@ def nvcc_path() -> str:
 def _lib_path(src: str) -> Path:
     # -Xptxas=-v only reports; it does not change the library
     h = hashlib.sha1((CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:12]}.so"
 

@@ -4,15 +4,23 @@ Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py:
 decode_attention_pallas`` and carries the two masks the reference's model
 function (``repro/models/attention.py: decode_attention``) adds to it: a
 sliding window and a rolling (ring-buffer) cache.  On an H100 the kernel
-(``csrc/decode_attention.cu``) is bound by memory bytes: it must read each
-live K/V row once, and its arithmetic (4 * G * hd flops per K/V row pair)
-is far below the card's flops-per-byte ratio.  Its design: one block per
-(row, KV head), the G query heads of that KV head sharing every K/V tile
-staged in shared memory with 16-byte loads; each row walks only its live
-span (the Pallas grid walks every ``blk_l`` tile of L); one warp per token
-for the scores (lanes split hd), one warp per query head for the online
-softmax, fp32 throughout.  The pre-scaled query is rounded to the cache
-dtype, as the plain version does.
+(``csrc/decode_attention.cu`` over the split-KV design shared with the
+paged kernel in ``csrc/decode_attention_common.cuh``) is bound by memory
+bytes: it must read each live K/V row once, and its arithmetic (4 * G * hd
+flops per K/V row pair) is far below the card's flops-per-byte ratio.  Its
+design: the cache's L positions are cut into 64-token splits, one block
+per (split, KV head, group of 8 query heads, row), so that a decode step
+fills the card however few rows it has; a block whose split lies outside
+its row's live span exits at once, and the host never reads ``lengths``.
+Each block streams its K/V through a ring of 16-token stages in shared
+memory, filled by ``cp.async`` in the cache dtype; in bf16 the scores and
+the products run on tensor cores (``mma.sync``, tokens on M, query heads
+on N), float32 runs on CUDA cores.  Each block writes fp32 partials (acc,
+running max, running sum) to a workspace the wrapper allocates, and a
+merge kernel launched by the same C call combines each row's live splits.
+The pre-scaled query is rounded to the cache dtype, as the plain version
+does.  The bf16 kernel needs ``hd % 16 == 0``, float32 ``hd % 8 == 0``,
+both ``hd <= 256``; any ``Hq % Hkv == 0`` is taken.
 
 Each row's live span is ``[lo, hi)`` with ``hi = min(len, L)`` and
 ``lo = max(0, len - window)`` for a (non-rolling) sliding window, else 0.
@@ -21,7 +29,8 @@ produces) writes zeros in both versions.
 
 :func:`decode_attention` is the wrapper: on a CPU tensor it runs
 :func:`decode_attention_plain`; on a CUDA tensor it launches the kernel or
-raises.  ``decode_attention.launches`` counts launches.
+raises.  ``decode_attention.launches`` counts the calls that launched it
+(one per call, though a call runs two CUDA kernels).
 """
 from __future__ import annotations
 
@@ -33,6 +42,9 @@ __all__ = ["decode_attention", "decode_attention_plain", "live_span"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
+#: tokens per split of the kernel's split-KV grid
+SPLIT_LEN = 64
+_MAX_HD = 256
 
 
 def live_span(lengths: torch.Tensor, L: int, *, sliding_window: int = 0,
@@ -81,7 +93,7 @@ def _lib():
     lib = load("decode_attention.cu")
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -110,11 +122,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode_attention: cache shape "
                          f"{tuple(k_cache.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    G = Hq // Hkv if Hkv else 0
-    if Hkv == 0 or Hq % Hkv or hd % 8 or G > 8 or G * hd > 2048:
-        raise ValueError(f"decode_attention kernel needs Hq % Hkv == 0, "
-                         f"G <= 8, hd % 8 == 0 and G * hd <= 2048 (Hq={Hq},"
-                         f" Hkv={Hkv}, hd={hd})")
+    hd_mult = 16 if q.dtype == torch.bfloat16 else 8
+    if Hkv == 0 or Hq % Hkv or hd % hd_mult or hd > _MAX_HD:
+        raise ValueError(f"decode_attention kernel needs Hq % Hkv == 0 and "
+                         f"hd % {hd_mult} == 0, hd <= {_MAX_HD} for {q.dtype}"
+                         f" (Hq={Hq}, Hkv={Hkv}, hd={hd})")
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
         raise TypeError("decode_attention: lengths must be (B,) int32")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
@@ -122,19 +134,37 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous "
                              f"on {q.device}")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("decode_attention: caches must be 16-byte aligned")
+    if q.data_ptr() % 16 or k_cache.data_ptr() % 16 \
+            or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention: q and the caches must be "
+                         "16-byte aligned")
+    out = _launch(q, k_cache, v_cache, lengths, sliding_window, rolling)
+    if B:
+        decode_attention.launches += 1
+    return out
+
+
+def _launch(q, k_cache, v_cache, lengths, sliding_window=0, rolling=False,
+            *, merge: bool = True) -> torch.Tensor:
+    """One C call on checked inputs: the split pass and, with ``merge``,
+    the merge kernel into the returned output (without it, the split pass
+    alone, for timing)."""
+    B, Hq, hd = q.shape
+    L, Hkv = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
     if B == 0:
         return out
+    nsplit = max(1, -(-L // SPLIT_LEN))
+    part = torch.empty(B * nsplit * Hq * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     rc = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, L,
-                int(sliding_window), int(bool(rolling)), _DTYPES[q.dtype],
+                lengths.data_ptr(), part.data_ptr(), out.data_ptr(), B, Hq,
+                Hkv, hd, L, int(sliding_window), int(bool(rolling)),
+                SPLIT_LEN, nsplit, _DTYPES[q.dtype], int(merge),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    decode_attention.launches += 1
     return out
 
 

@@ -2,21 +2,36 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py:
 paged_decode_attention_pallas``.  On an H100 the kernel
-(``csrc/paged_attention.cu``) is bound by memory bytes: it must read each
-live K/V row once, and its arithmetic is far below the card's
-flops-per-byte ratio.  Its design: one block per (row, KV head), the G
-query heads of that KV head pre-scaled in shared memory, a walk over only
-the ``ceil(len / block_size)`` live entries of the row's block table
-(the Pallas grid visits all ``max_blocks``), K/V tiles staged in shared
-memory with 16-byte loads, an fp32 online softmax and fp32 accumulation.
+(``csrc/paged_attention.cu`` over the split-KV design shared with the
+contiguous kernel in ``csrc/decode_attention_common.cuh``) is bound by
+memory bytes: it must read each live K/V row once, and its arithmetic is
+far below the card's flops-per-byte ratio.  Its design: a row's
+``max_blocks * block_size`` positions are cut into splits of whole pool
+blocks (64 tokens at block size 16), one block per (split, KV head, group
+of 8 query heads, row); a block whose split lies past the row's length
+exits at once, and the host never reads ``lengths``.  Each block reads its
+table entries, streams the K/V rows they name through a ring of 16-token
+stages in shared memory filled by ``cp.async`` in the pool's dtype, and
+in bf16 forms the scores and products on tensor cores (``mma.sync``,
+tokens on M, query heads on N); float32 runs on CUDA cores.  The 1/sqrt(hd)
+scale is applied to the fp32 scores.  In bf16 the kernel rounds each
+tile's probabilities to bf16 before the P.V product (the tensor cores'
+input), where the plain version and the Pallas kernel keep them in fp32;
+the output differs by about one bf16 ulp.  Each block writes fp32 partials to a
+workspace the wrapper allocates, and a merge kernel launched by the same C
+call combines each row's live splits.  The bf16 kernel needs
+``hd % 16 == 0``, float32 ``hd % 8 == 0``, both ``hd <= 256``; any
+``Hq % Hkv == 0`` is taken.
 
 :func:`paged_decode_attention` is the wrapper: on a CPU tensor it runs
 :func:`paged_decode_attention_plain`; on a CUDA tensor it launches the
-kernel or raises.  ``paged_decode_attention.launches`` counts launches.
+kernel or raises.  ``paged_decode_attention.launches`` counts the calls
+that launched it (one per call, though a call runs two CUDA kernels).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -25,6 +40,14 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
+_MAX_HD = 256
+
+
+def split_len(block_size: int) -> int:
+    """Tokens per split of the kernel's grid: whole pool blocks and whole
+    16-token tiles, at least 64 (64 for block sizes 1, 2, 4, ..., 64)."""
+    unit = block_size * 16 // math.gcd(block_size, 16)
+    return unit * -(-64 // unit)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths,
@@ -70,7 +93,7 @@ def _lib():
     lib = load("paged_attention.cu")
     fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -100,10 +123,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"paged_decode_attention: pool shape "
                          f"{tuple(k_pool.shape)} does not match q "
                          f"{tuple(q.shape)} / block_size {block_size}")
-    if Hq % Hkv or hd % 8 or (Hq // Hkv) * hd > 2048:
-        raise ValueError(f"paged_decode_attention kernel needs Hq % Hkv == 0,"
-                         f" hd % 8 == 0 and G * hd <= 2048 (Hq={Hq}, "
-                         f"Hkv={Hkv}, hd={hd})")
+    hd_mult = 16 if q.dtype == torch.bfloat16 else 8
+    if Hq % Hkv or hd % hd_mult or hd > _MAX_HD:
+        raise ValueError(f"paged_decode_attention kernel needs Hq % Hkv == 0"
+                         f" and hd % {hd_mult} == 0, hd <= {_MAX_HD} for "
+                         f"{q.dtype} (Hq={Hq}, Hkv={Hkv}, hd={hd})")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32 \
             or block_tables.shape[0] != B or lengths.shape != (B,):
         raise TypeError("paged_decode_attention: block_tables (B, "
@@ -113,21 +137,39 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"paged_decode_attention: {name} must be "
                              f"contiguous on {q.device}")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_decode_attention: pools must be 16-byte "
-                         "aligned")
+    if q.data_ptr() % 16 or k_pool.data_ptr() % 16 \
+            or v_pool.data_ptr() % 16:
+        raise ValueError("paged_decode_attention: q and the pools must be "
+                         "16-byte aligned")
+    out = _launch(q, k_pool, v_pool, block_tables, lengths)
+    if B:
+        paged_decode_attention.launches += 1
+    return out
+
+
+def _launch(q, k_pool, v_pool, block_tables, lengths, *,
+            merge: bool = True) -> torch.Tensor:
+    """One C call on checked inputs: the split pass and, with ``merge``,
+    the merge kernel into the returned output (without it, the split pass
+    alone, for timing)."""
+    B, Hq, hd = q.shape
+    n_pool, bs, Hkv = k_pool.shape[:3]
+    mb = block_tables.shape[1]
     out = torch.empty_like(q)
     if B == 0:
         return out
+    S = split_len(bs)
+    nsplit = max(1, -(-(mb * bs) // S))
+    part = torch.empty(B * nsplit * Hq * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     rc = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                B, Hq, Hkv, hd, bs, block_tables.shape[1], n_pool,
-                _DTYPES[q.dtype],
+                block_tables.data_ptr(), lengths.data_ptr(), part.data_ptr(),
+                out.data_ptr(), B, Hq, Hkv, hd, bs, mb, n_pool, S, nsplit,
+                _DTYPES[q.dtype], int(merge),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")
-    paged_decode_attention.launches += 1
     return out
 
 

@@ -52,6 +52,12 @@ SSM_CASES = [(1, 32, 1, 8, 8, 16), (2, 64, 3, 16, 8, 16),
 SSM_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
 # sliding window / rolling cases of the model function: (mode, window)
 MASKS = [("causal", 0), ("window", 24), ("rolling", 24)]
+# granite-34b's head layout (configs/granite_34b.py): 48 query heads over
+# one KV head, hd=128 (G * hd = 6144), at a small B and L
+G34 = dict(Hq=48, Hkv=1, hd=128)
+# the kernels' split length (decode_attention.SPLIT_LEN, and
+# paged_attention.split_len at block size 16)
+SPLIT = 64
 
 
 @pytest.fixture(scope="module")
@@ -135,6 +141,25 @@ def _paged_inputs(B, Hq, Hkv, hd, bs, mb, seed=3):
         ptr += n
         lens[b] = L
     return q, kp, vp, bt, lens
+
+
+def _paged_fixed(lens, Hq, Hkv, hd, bs, mb, seed):
+    """Paged inputs with the given lengths: each row's live blocks drawn
+    from a permutation of the pool, so they lie apart and out of order."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    npool = mb * B + 4
+    q = rng.normal(size=(B, Hq, hd)).astype(np.float32)
+    kp = rng.normal(size=(npool, bs, Hkv, hd)).astype(np.float32)
+    vp = rng.normal(size=(npool, bs, Hkv, hd)).astype(np.float32)
+    perm = rng.permutation(npool)
+    bt = np.full((B, mb), -1, np.int32)
+    ptr = 0
+    for b, n_tok in enumerate(lens):
+        n = -(-n_tok // bs)
+        bt[b, :n] = perm[ptr:ptr + n]
+        ptr += n
+    return q, kp, vp, bt, np.asarray(lens, np.int32)
 
 
 def _decode_inputs(B, Hq, Hkv, hd, L, seed=0, lens=None):
@@ -230,6 +255,31 @@ class TestPagedAttentionPlain:
             torch.from_numpy(bt), torch.from_numpy(lens), bs)
         np.testing.assert_allclose(_t32(got), want, atol=2e-5, rtol=2e-5)
 
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_granite34b_layout_matches_pallas(self, ref, dtype):
+        """Hq=48 over one KV head: the kernel's head groups of 8 run six
+        times per KV head; the plain version against the Pallas kernel."""
+        jdt, tdt, tol = DTYPES[dtype]
+        bs = 16
+        q, kp, vp, bt, lens = _paged_inputs(2, G34["Hq"], G34["Hkv"],
+                                            G34["hd"], bs, 4, seed=15)
+        jnp = ref.jnp
+        want = _np32(ref.paged_pallas(
+            jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+            jnp.asarray(bt), jnp.asarray(lens), block_size=bs))
+        got = pa.paged_decode_attention_plain(
+            torch.from_numpy(q).to(tdt), torch.from_numpy(kp).to(tdt),
+            torch.from_numpy(vp).to(tdt), torch.from_numpy(bt),
+            torch.from_numpy(lens), bs)
+        assert got.dtype == tdt and tuple(got.shape) == q.shape
+        np.testing.assert_allclose(_t32(got), want, atol=tol, rtol=tol)
+
+    def test_split_len_covers_whole_blocks_and_tiles(self):
+        for bs_ in (1, 2, 4, 8, 16, 24, 32, 48, 64, 128):
+            S = pa.split_len(bs_)
+            assert S >= SPLIT and S % bs_ == 0 and S % 16 == 0
+        assert pa.split_len(16) == SPLIT
+
     def test_zero_length_rows_are_zero(self):
         q, kp, vp, bt, lens = _paged_inputs(*PAGED_CASES[1])
         lens[1] = 0
@@ -303,6 +353,21 @@ class TestDecodeAttentionPlain:
                            torch.from_numpy(k).to(tdt),
                            torch.from_numpy(v).to(tdt),
                            torch.from_numpy(lens), **kw)
+        np.testing.assert_allclose(_t32(got), want, atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_granite34b_layout_matches_pallas(self, ref, dtype):
+        jdt, tdt, tol = DTYPES[dtype]
+        q, k, v, lens = _decode_inputs(2, G34["Hq"], G34["Hkv"], G34["hd"],
+                                       64, seed=16)
+        jnp = ref.jnp
+        want = _np32(ref.decode_pallas(
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+            jnp.asarray(lens), blk_l=32, interpret=True))
+        got = da.decode_attention_plain(
+            torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+            torch.from_numpy(v).to(tdt), torch.from_numpy(lens))
+        assert got.dtype == tdt and tuple(got.shape) == q.shape
         np.testing.assert_allclose(_t32(got), want, atol=tol, rtol=tol)
 
     def test_empty_span_rows_are_zero(self):
@@ -408,7 +473,9 @@ class TestKernelsOnCard:
         np.testing.assert_allclose(_t32(got), _t32(rk.rms_norm_plain(xt, st)),
                                    atol=tol, rtol=tol)
 
-    @pytest.mark.parametrize("case", PAGED_CASES + [(32, 32, 8, 128, 16, 16)])
+    @pytest.mark.parametrize("case", PAGED_CASES + [(32, 32, 8, 128, 16, 16),
+                                      (2, 48, 1, 128, 16, 8),
+                                      (3, 8, 2, 256, 16, 12)])
     @pytest.mark.parametrize("dtype", list(DTYPES))
     def test_paged_attention_kernel(self, cuda, case, dtype):
         _, tdt, tol = DTYPES[dtype]
@@ -461,7 +528,8 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize(
         "case", [c[:5] for c in DECODE_CASES]
-        + [(32, 32, 8, 128, 256), (32, 32, 32, 64, 256), (4, 64, 8, 128, 96)])
+        + [(32, 32, 8, 128, 256), (32, 32, 32, 64, 256), (4, 64, 8, 128, 96),
+           (2, 48, 1, 128, 64), (3, 8, 2, 256, 160)])
     @pytest.mark.parametrize("mask", MASKS, ids=[m for m, _ in MASKS])
     @pytest.mark.parametrize("dtype", list(DTYPES))
     def test_decode_attention_kernel(self, cuda, case, mask, dtype):
@@ -489,6 +557,138 @@ class TestKernelsOnCard:
         np.testing.assert_allclose(
             _t32(got), _t32(da.decode_attention_plain(*args)), atol=2e-5,
             rtol=2e-5)
+
+    def _paged_on_card(self, cuda, dtype, q, kp, vp, bt, lens, bs):
+        _, tdt, tol = DTYPES[dtype]
+        args = [torch.from_numpy(a).to(cuda, tdt) for a in (q, kp, vp)]
+        args += [torch.from_numpy(a).to(cuda) for a in (bt, lens)]
+        before = pa.paged_decode_attention.launches
+        got = pa.paged_decode_attention(*args, block_size=bs)
+        torch.cuda.synchronize()
+        assert pa.paged_decode_attention.launches == before + 1
+        want = pa.paged_decode_attention_plain(*args, bs)
+        np.testing.assert_allclose(_t32(got), _t32(want), atol=tol, rtol=tol)
+
+    def _decode_on_card(self, cuda, dtype, q, k, v, lens, **kw):
+        _, tdt, tol = DTYPES[dtype]
+        args = [torch.from_numpy(x).to(cuda, tdt) for x in (q, k, v)]
+        args.append(torch.from_numpy(np.asarray(lens, np.int32)).to(cuda))
+        before = da.decode_attention.launches
+        got = da.decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == before + 1
+        want = da.decode_attention_plain(*args, **kw)
+        np.testing.assert_allclose(_t32(got), _t32(want), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_paged_attention_split_boundaries(self, cuda, dtype):
+        """Lengths 1, S-1, S, S+1 and L in one batch (S = 64-token split),
+        each row's blocks permuted over the pool."""
+        lens = [1, SPLIT - 1, SPLIT, SPLIT + 1, 256]
+        self._paged_on_card(cuda, dtype,
+                            *_paged_fixed(lens, 32, 8, 128, 16, 16, seed=17),
+                            16)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_paged_attention_longest_row(self, cuda, dtype):
+        """B=1 over 64 blocks of 16: the merge combines 16 splits, whose
+        blocks lie permuted over the pool."""
+        self._paged_on_card(cuda, dtype,
+                            *_paged_fixed([1024], 32, 8, 128, 16, 64,
+                                          seed=18), 16)
+
+    @pytest.mark.parametrize("bs_mb", [(8, 24), (32, 6), (24, 10), (128, 3),
+                                       (256, 2)])
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_paged_attention_other_block_sizes(self, cuda, bs_mb, dtype):
+        """Blocks of 8 and 32 tokens: a split spans 8 or 2 pool blocks.
+        Blocks of 24, 128 and 256 tokens: splits of 96, 128 and 256
+        tokens, so a warp owns 2 to 4 tiles and refills its stage."""
+        bs_, mb = bs_mb
+        lens = [3, SPLIT, SPLIT + 5, bs_ * mb]
+        self._paged_on_card(cuda, dtype,
+                            *_paged_fixed(lens, 16, 4, 64, bs_, mb, seed=19),
+                            bs_)
+
+    def test_paged_attention_g1_hd64_bf16(self, cuda):
+        lens = [5, SPLIT + 1, 192]
+        self._paged_on_card(cuda, "bfloat16",
+                            *_paged_fixed(lens, 8, 8, 64, 16, 12, seed=20),
+                            16)
+
+    @pytest.mark.parametrize("mask", [("causal", 0), ("window", 70)],
+                             ids=["causal", "window"])
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_decode_attention_split_boundaries(self, cuda, mask, dtype):
+        """Lengths 1, S-1, S, S+1 and L in one batch; with a window of 70
+        the live span starts inside a later split."""
+        mode, window = mask
+        L = 256
+        lens = [1, SPLIT - 1, SPLIT, SPLIT + 1, L]
+        q, k, v, _ = _decode_inputs(len(lens), 32, 8, 128, L, seed=21)
+        self._decode_on_card(cuda, dtype, q, k, v, lens,
+                             sliding_window=window)
+
+    @pytest.mark.parametrize("mode", ["causal", "rolling"])
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_decode_attention_longest_row(self, cuda, mode, dtype):
+        """B=1 over L=1024: the merge combines 16 splits."""
+        L = 1024
+        lens = [L] if mode == "causal" else [3 * L + 7]
+        q, k, v, _ = _decode_inputs(1, 32, 8, 128, L, seed=22)
+        self._decode_on_card(cuda, dtype, q, k, v, lens,
+                             rolling=mode == "rolling")
+
+    def test_decode_attention_row_of_313_splits(self, cuda):
+        """L = 20000: the merge combines 313 splits of one row."""
+        L = 20000
+        q, k, v, _ = _decode_inputs(2, 8, 1, 128, L, seed=26)
+        self._decode_on_card(cuda, "bfloat16", q, k, v, [L, 9999])
+
+    def test_decode_attention_g1_hd64_bf16(self, cuda):
+        lens = [1, SPLIT - 1, SPLIT + 1, 200]
+        q, k, v, _ = _decode_inputs(len(lens), 4, 4, 64, 200, seed=23)
+        self._decode_on_card(cuda, "bfloat16", q, k, v, lens)
+
+    def test_attention_repeat_calls_agree(self, cuda):
+        """Calls in a row, at two batch sizes, give the same outputs (the
+        split workspace is fresh for each call)."""
+        q, k, v, lens = _decode_inputs(6, 32, 8, 128, 256, seed=24)
+        args = [torch.from_numpy(x).to(cuda, torch.bfloat16)
+                for x in (q, k, v)] + [torch.from_numpy(lens).to(cuda)]
+        first = da.decode_attention(*args)
+        small = da.decode_attention(*(a[:2] for a in args))
+        again = da.decode_attention(*args)
+        assert torch.equal(first, again) and torch.equal(small, first[:2])
+        q, kp, vp, bt, lens = _paged_inputs(*PAGED_CASES[1], seed=25)
+        pargs = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, bt, lens)]
+        first = pa.paged_decode_attention(*pargs, block_size=16)
+        again = pa.paged_decode_attention(*pargs, block_size=16)
+        assert torch.equal(first, again)
+
+    def test_attention_rejects_bf16_hd_not_multiple_of_16(self, cuda):
+        q = torch.ones((2, 4, 40), device=cuda, dtype=torch.bfloat16)
+        kv = torch.ones((2, 16, 2, 40), device=cuda, dtype=torch.bfloat16)
+        lens = torch.ones(2, device=cuda, dtype=torch.int32)
+        with pytest.raises(ValueError, match="hd % 16"):
+            da.decode_attention(q, kv, kv, lens)
+        bt = torch.zeros((2, 1), device=cuda, dtype=torch.int32)
+        with pytest.raises(ValueError, match="hd % 16"):
+            pa.paged_decode_attention(q, kv, kv, bt, lens, block_size=16)
+
+    def test_attention_rejects_misaligned_q(self, cuda):
+        """A contiguous q 2 bytes past a 16-byte boundary: the bf16 split
+        pass loads q with 16-byte copies, so the wrappers refuse it."""
+        buf = torch.zeros(2 * 4 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+        q = buf[1:].view(2, 4, 64)
+        assert q.is_contiguous() and q.data_ptr() % 16
+        kv = torch.ones((2, 16, 2, 64), device=cuda, dtype=torch.bfloat16)
+        lens = torch.ones(2, device=cuda, dtype=torch.int32)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            da.decode_attention(q, kv, kv, lens)
+        bt = torch.zeros((2, 1), device=cuda, dtype=torch.int32)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pa.paged_decode_attention(q, kv, kv, bt, lens, block_size=16)
 
     @pytest.mark.parametrize(
         "case", SSM_CASES + [(32, 64, 32, 64, 128, 64),
