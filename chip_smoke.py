@@ -10,7 +10,11 @@ result line):
    with nvcc for sm_90a, one process per source, all at once (timed,
    with the compiler's register report).
 3. Kernel phases, at the shapes of the serving paths: the RMS-norm
-   kernel (K2) on (32, 4096) bf16 and the paged decode-attention kernel
+   kernel (K2) on (32, 4096) bf16, at a prefill shape (2048, 4096) and at
+   widths 6144 and 8192, each plain and with the residual add fused (its
+   sum PyTorch's, its norm bit-identical to the kernel's norm of that
+   sum), also timed back to back from a CUDA graph, beside ``F.rms_norm``
+   (after ``x + r`` for the fused call); the paged decode-attention kernel
    (K1) at B=32, Hq=32, Hkv=8, hd=128, block 16, 16 blocks per row (bf16
    pool, permuted tables, ragged lengths including 1 and 256) and at
    granite-34b's head layout (Hq=48 over one KV head); the contiguous
@@ -145,27 +149,111 @@ def compare(name, got, want, tol=TOL):
     return float(err.max().item())
 
 
-def phase_rms_norm(dev, flush):
+def time_graph_ms(fn, n: int = 20, reps: int = 20) -> float:
+    """Device time of one call when ``n`` calls run back to back from a
+    CUDA graph (median of ``reps`` replays, divided by ``n``): no host
+    launch cost and no sleep-kernel floor in it, as in a captured step."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / n)
+    del graph
+    return float(np.median(out))
+
+
+def _norm_case(dev, R, d, *, fused, seed):
+    """K2 on one bf16 case: the norm, or with ``fused`` the residual add +
+    norm, against its plain version, timed beside its bound, the plain
+    version and the library calls that compute the same function
+    (``F.rms_norm``; for the fused call ``x + r`` and then ``F.rms_norm``)."""
+    import torch.nn.functional as F
     from repro_torch.kernels import rms_norm as rk
-    R, d = 32, 4096
-    g = torch.Generator(device=dev).manual_seed(1)
+    g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((R, d), generator=g, device=dev).to(torch.bfloat16)
+    r = torch.randn((R, d), generator=g, device=dev).to(torch.bfloat16)
     sc = torch.randn((d,), generator=g, device=dev)
-    got = rk.rms_norm(x, sc, 1e-5)
-    err = compare("rms_norm", got, rk.rms_norm_plain(x, sc, 1e-5))
-    ms = time_ms(lambda: rk.rms_norm(x, sc, 1e-5))
-    plain_ms = time_ms(lambda: rk.rms_norm_plain(x, sc, 1e-5))
     sc_lib = sc.to(x.dtype)
-    lib_ms = time_ms(lambda: torch.nn.functional.rms_norm(
-        x, (d,), weight=sc_lib, eps=1e-5))
-    nbytes = 2 * R * d * x.element_size() + d * 4
-    b_ms, b_by = bound(nbytes, 4.0 * R * d)
+    es = x.element_size()
+
+    def fn():
+        if fused:
+            return rk.add_rms_norm(x, r, sc, 1e-5)
+        return rk.rms_norm(x, sc, 1e-5)
+
+    def plain():
+        if fused:
+            return rk.add_rms_norm_plain(x, r, sc, 1e-5)
+        return rk.rms_norm_plain(x, sc, 1e-5)
+
+    def lib():
+        return F.rms_norm(x + r if fused else x, (d,), weight=sc_lib,
+                          eps=1e-5)
+
+    what = f"{'add_' if fused else ''}rms_norm ({R}, {d})"
+    out, want = fn(), plain()
+    if fused:
+        (s, out), (s0, want) = out, want
+        torch.cuda.synchronize()
+        check(torch.equal(s, s0), f"{what}: x + r differs from PyTorch's add")
+        check(torch.equal(out, rk.rms_norm(s0, sc, 1e-5)),
+              f"{what}: not bit-identical to rms_norm(x + r) through the "
+              f"kernel")
+    err = compare(what, out, want)
+    nbytes = (4 if fused else 2) * R * d * es + d * 4
+    flops = (5.0 if fused else 4.0) * R * d
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(max_abs_err=err, ms=time_ms(fn), graph_ms=time_graph_ms(fn),
+                plain_ms=time_ms(plain), library_ms=time_ms(lib),
+                library_graph_ms=time_graph_ms(lib), bound_ms=b_ms,
+                bound_by=b_by,
+                shape=f"{'x + r, ' if fused else ''}x ({R}, {d}) bf16, "
+                      f"scale ({d},) f32")
+
+
+_NORM_KEYS = ("shape", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "library_graph_ms", "max_abs_err")
+
+
+def phase_rms_norm(dev):
+    """K2 at the decode shape (32, 4096) bf16 (the row's numbers), at a
+    prefill shape (2048, 4096) and at granite-34b's and qwen2-72b's widths
+    (6144, 8192) at 32 rows, each plain and with the residual add fused."""
+    cases = []
+    for R, d, seed in ((32, 4096, 1), (2048, 4096, 3), (32, 6144, 4),
+                       (32, 8192, 5)):
+        cases += [_norm_case(dev, R, d, fused=False, seed=seed),
+                  _norm_case(dev, R, d, fused=True, seed=seed)]
+    for c in cases:
+        print(f"kernel rms_norm [{c['shape']}]: {c['ms'] * 1e3:.2f} us, "
+              f"{c['graph_ms'] * 1e3:.2f} us a call back to back in a CUDA "
+              f"graph (bound {c['bound_ms'] * 1e3:.3f} us by "
+              f"{c['bound_by']}), plain {c['plain_ms'] * 1e3:.2f} us, "
+              f"library {c['library_ms'] * 1e3:.2f} us ("
+              f"{c['library_graph_ms'] * 1e3:.2f} in a graph; kernel / "
+              f"library {c['ms'] / c['library_ms']:.2f}x, in a graph "
+              f"{c['graph_ms'] / c['library_graph_ms']:.2f}x), max abs err "
+              f"{c['max_abs_err']:.3e}")
+    main = cases[0]
     return dict(name="rms_norm", route="cuda",
                 source="src/repro_torch/kernels/csrc/rms_norm.cu",
                 replaces="src/repro/kernels/rms_norm.py:28",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms,
-                shape=f"x ({R}, {d}) bf16, scale ({d},) f32")
+                **{k: main[k] for k in _NORM_KEYS},
+                max_abs_err_all=max(c["max_abs_err"] for c in cases),
+                cases=[{k: c[k] for k in _NORM_KEYS} for c in cases[1:]])
 
 
 def _paged_case(dev, flush, B, Hq, Hkv, hd, bs, mb, *, seed):
@@ -840,13 +928,7 @@ def main() -> None:
                 print(f"ptxas {src}: {line.strip()}")
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
-    kernels = [phase_rms_norm(dev, flush)]
-    k = kernels[0]
-    print(f"kernel {k['name']} [{k['shape']}]: {k['ms'] * 1e3:.2f} us "
-          f"(bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}), "
-          f"plain {k['plain_ms'] * 1e3:.2f} us, library "
-          f"{k['library_ms'] * 1e3:.2f} us, max abs err "
-          f"{k['max_abs_err']:.3e}")
+    kernels = [phase_rms_norm(dev)]
     # the timing method's floor: a one-element add timed as the kernels are
     one = torch.zeros(1, device=dev)
     floor_ms = time_ms(lambda: one.add_(1), flush=flush)

@@ -17,11 +17,11 @@ import torch.nn.functional as F
 from .bfio_swap import swap_best
 from .decode_attention import decode_attention
 from .paged_attention import paged_decode_attention
-from .rms_norm import rms_norm
+from .rms_norm import add_rms_norm, rms_norm
 from .ssm_scan import ssm_chunk_scan as _ssm_chunk_scan
 
-__all__ = ["on_cuda", "rms_norm", "paged_decode_attention", "swap_best",
-           "decode_attention", "ssm_chunk_scan"]
+__all__ = ["on_cuda", "rms_norm", "add_rms_norm", "paged_decode_attention",
+           "swap_best", "decode_attention", "ssm_chunk_scan"]
 
 
 def on_cuda() -> bool:

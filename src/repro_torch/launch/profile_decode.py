@@ -7,8 +7,10 @@ synthetic stream until the first decode-only step, then records the next
 ``--profile-steps`` decode-only steps with ``torch.profiler`` and prints:
 the steps' wall time (host clock, each step ends in a device sync), the
 device's busy time (the sum of kernel times: one stream, so kernels do
-not overlap), the idle share, and the kernels that take the most device
-time.  ``--chrome-trace PATH`` writes the Chrome trace.  It needs a
+not overlap), the idle share, the device kernels launched a step, the
+RMS-norm kernel's (K2's) launches and device time per launch, the share
+of PyTorch's elementwise kernels, and the kernels that take the most
+device time.  ``--chrome-trace PATH`` writes the Chrome trace.  It needs a
 card.
 """
 from __future__ import annotations
@@ -65,6 +67,19 @@ def main(argv=None) -> None:
           f"{len(walls)} steps ({n} decode-only), wall "
           f"{wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms, "
           f"idle share {1 - busy_us / wall_us:.1%}")
+    launches = sum(e.count for e in kernels)
+    print(f"[profile] device kernel launches: {launches} in {len(walls)} "
+          f"steps, {launches / len(walls):.1f} a step")
+    norm = [e for e in kernels if "rms_norm" in e.key]
+    n_norm = sum(e.count for e in norm)
+    if n_norm:
+        norm_us = sum(_device_us(e) for e in norm)
+        print(f"[profile] K2 (rms_norm): {n_norm} launches, "
+              f"{norm_us / n_norm:.2f} us each, {norm_us / busy_us:.1%} of "
+              f"device busy")
+    elem_us = sum(_device_us(e) for e in kernels if "elementwise" in e.key)
+    print(f"[profile] elementwise kernels: {elem_us / busy_us:.1%} of "
+          f"device busy")
     kernels.sort(key=_device_us, reverse=True)
     for e in kernels[:args.top]:
         print(f"[profile] {_device_us(e) / 1e3:9.3f} ms "

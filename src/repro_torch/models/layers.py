@@ -18,6 +18,7 @@ from ..kernels import ops
 
 __all__ = [
     "rms_norm",
+    "add_rms_norm",
     "make_rope",
     "apply_rope",
     "dense_init",
@@ -63,6 +64,15 @@ def rms_norm(x, scale, eps: float = 1e-5):
     """RMSNorm with fp32 accumulation: the port's RMS-norm kernel on a
     CUDA tensor, its plain version on a CPU tensor."""
     return ops.rms_norm(x, scale, eps)
+
+
+def add_rms_norm(x, r, scale, eps: float = 1e-5):
+    """The residual add and the RMSNorm that reads it, in one kernel launch
+    on a CUDA tensor: returns ``(x + r, rms_norm(x + r))``.  ``r`` is None
+    where there is nothing to add (the first block): ``(x, rms_norm(x))``."""
+    if r is None:
+        return x, ops.rms_norm(x, scale, eps)
+    return ops.add_rms_norm(x, r, scale, eps)
 
 
 def make_rope(positions, head_dim: int, theta: float = 1e4):

@@ -11,6 +11,12 @@ of Mamba2 blocks, each application with its own cache (``shared0`` ...).
 The moe, vlm and audio families raise ``NotImplementedError`` naming
 their ROADMAP item.
 
+Every block hands its residual branch's output to the next norm instead
+of adding it itself: a block takes ``(x, r)`` and returns ``(x', r')``,
+and the norm that reads ``x + r`` adds it in the same kernel launch
+(:func:`layers.add_rms_norm`), the last pending branch in the final norm.
+The sums are the reference's, computed in the same dtype.
+
 Caches update IN PLACE (the reference donates them to its jitted calls
 and rebinds the returned buffers): :func:`decode_fn` writes the new KV and
 the new recurrent states into the cache it is given; the paged entry
@@ -33,6 +39,7 @@ from ..configs.base import ModelConfig
 from . import attention as attn_lib
 from . import ssm as ssm_lib
 from .layers import (
+    add_rms_norm,
     apply_rope,
     dense_init,
     embed_init,
@@ -313,23 +320,27 @@ def _mlp_forward(cfg: ModelConfig, p, x):
                   p["w_out"])
 
 
-def _chunk_qkv(cfg: ModelConfig, p, xx, sin, cos):
-    """Pre-attention half of an attn block: norm + q/k/v projection + rope."""
-    h = rms_norm(xx, p["norm1"], cfg.norm_eps)
+def _chunk_qkv(cfg: ModelConfig, p, xx, r, sin, cos):
+    """Pre-attention half of an attn block: the pending residual ``r`` (None
+    at the first block) added in norm1, q/k/v projection, rope.  Returns
+    (xx + r, q, k, v)."""
+    xx, h = add_rms_norm(xx, r, p["norm1"], cfg.norm_eps)
     ap = p["attn"]
     q = apply_rope(linear(h, ap["wq"], ap.get("bq")), sin, cos)
     k = apply_rope(linear(h, ap["wk"], ap.get("bk")), sin, cos)
     v = linear(h, ap["wv"], ap.get("bv"))
-    return q, k, v
+    return xx, q, k, v
 
 
 def _chunk_finish(cfg: ModelConfig, p, xx, o):
-    """Post-attention half: output projection + FFN residual."""
+    """Post-attention half: output projection, its residual added in norm2,
+    FFN.  Returns (residual stream, FFN output): the next norm adds the
+    second."""
     ap = p["attn"]
-    xx = xx + linear(o.reshape(o.shape[:-2] + (-1,)),
-                     ap["wo"].reshape(-1, cfg.d_model))
-    h2 = rms_norm(xx, p["norm2"], cfg.norm_eps)
-    return xx + _mlp_forward(cfg, p["ffn"], h2)
+    a = linear(o.reshape(o.shape[:-2] + (-1,)),
+               ap["wo"].reshape(-1, cfg.d_model))
+    xx, h2 = add_rms_norm(xx, a, p["norm2"], cfg.norm_eps)
+    return xx, _mlp_forward(cfg, p["ffn"], h2)
 
 
 def _write_rows(buf, pos, new):
@@ -344,14 +355,14 @@ def _write_rows(buf, pos, new):
     buf[bidx, pc] = torch.where(keep, new.to(buf.dtype), buf[bidx, pc])
 
 
-def _attn_forward(cfg: ModelConfig, p, x, *, mode: str, cache, sin, cos,
+def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
                   lengths, rolling: bool = False):
     """Self-attention block (+ FFN).  ``decode`` writes the new token's KV
     at ``lengths - 1`` (taken ``% L`` on a rolling cache) into ``cache`` in
     place and attends through :func:`attention.decode_attention` (kernel
     K3 on a CUDA tensor); ``prefill`` attends causally and fills the cache
     rows' first S positions."""
-    q, k, v = _chunk_qkv(cfg, p, x, sin, cos)
+    x, q, k, v = _chunk_qkv(cfg, p, x, r, sin, cos)
     if mode == "decode":
         kc, vc = cache["k"], cache["v"]
         pos = lengths.long() - 1
@@ -386,7 +397,8 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _mamba_forward(cfg: ModelConfig, p, x, *, mode: str, cache, lengths):
+def _mamba_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
+                   lengths):
     """Mamba2 (SSD) block.  In prefill, padding steps get dt=0, which zeroes
     both the decay exponent and the input gate — the state is untouched
     beyond the true prompt length.  ``cache`` (conv, state) is written in
@@ -394,7 +406,7 @@ def _mamba_forward(cfg: ModelConfig, p, x, *, mode: str, cache, lengths):
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     P = di // H
     sp = p["ssm"]
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x, h = add_rms_norm(x, r, p["norm1"], cfg.norm_eps)
     proj = linear(h, sp["w_in"])          # (..., 2di+2N+H)
     z, xs, Bm, Cm, dt = torch.split(proj, [di, di, N, N, H], dim=-1)
     dt = _softplus(dt.float() + sp["dt_bias"].float())          # (..., H)
@@ -426,16 +438,17 @@ def _mamba_forward(cfg: ModelConfig, p, x, *, mode: str, cache, lengths):
         cache["conv"].copy_(conv_state)
         cache["state"].copy_(state)
     y = rms_norm(y * F.silu(z), sp["norm"], cfg.norm_eps)
-    return x + linear(y, sp["w_out"])
+    return x, linear(y, sp["w_out"])
 
 
-def _mlstm_forward(cfg: ModelConfig, p, x, *, mode: str, cache, lengths):
+def _mlstm_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
+                   lengths):
     """mLSTM block: the gated linear-attention core with the normalizer
     column.  ``cache`` (conv, state) is written in place."""
     di, H = cfg.d_inner, cfg.n_ssm_heads
     hd = di // H
     sp = p["ssm"]
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x, h = add_rms_norm(x, r, p["norm1"], cfg.norm_eps)
     xm, z = torch.chunk(linear(h, sp["w_up"]), 2, dim=-1)
     if mode == "decode":
         xc, conv_state = ssm_lib.causal_conv1d_step(xm[:, 0], sp["conv_w"],
@@ -475,16 +488,17 @@ def _mlstm_forward(cfg: ModelConfig, p, x, *, mode: str, cache, lengths):
         cache["conv"].copy_(conv_state)
         cache["state"].copy_(state)
     y = rms_norm(y * F.silu(z), sp["norm"], cfg.norm_eps)
-    return x + linear(y, sp["w_out"])
+    return x, linear(y, sp["w_out"])
 
 
-def _slstm_forward(cfg: ModelConfig, p, x, *, mode: str, cache, lengths):
+def _slstm_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
+                   lengths):
     """sLSTM block (+ its GELU FFN).  ``cache["hcnm"]`` is written in
     place."""
     d, H = cfg.d_model, cfg.n_ssm_heads
     hd = d // H
     sp = p["ssm"]
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x, h = add_rms_norm(x, r, p["norm1"], cfg.norm_eps)
     xg = linear(h, sp["w_x"].reshape(d, -1)).reshape(
         h.shape[:-1] + (H, 4, hd)) + sp["b_x"].to(h.dtype)
     if mode == "decode":
@@ -498,22 +512,22 @@ def _slstm_forward(cfg: ModelConfig, p, x, *, mode: str, cache, lengths):
     if cache is not None:
         for dst, src in zip(cache["hcnm"], state):
             dst.copy_(src)
-    x = x + y.reshape(y.shape[:2] + (d,))
-    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    x, h2 = add_rms_norm(x, y.reshape(y.shape[:2] + (d,)), p["norm2"],
+                         cfg.norm_eps)
     ff = linear(F.gelu(linear(h2, sp["w_ffn_in"]), approximate="tanh"),
                 sp["w_ffn_out"])
-    return x + ff
+    return x, ff
 
 
 _FORWARD = {"mamba": _mamba_forward, "mlstm": _mlstm_forward,
             "slstm": _slstm_forward}
 
 
-def _block_forward(cfg: ModelConfig, kind: str, p, x, *, mode: str, cache,
-                   common: dict):
+def _block_forward(cfg: ModelConfig, kind: str, p, x, r, *, mode: str,
+                   cache, common: dict):
     if kind in ("attn", "shared_attn"):
-        return _attn_forward(cfg, p, x, mode=mode, cache=cache, **common)
-    return _FORWARD[kind](cfg, p, x, mode=mode, cache=cache,
+        return _attn_forward(cfg, p, x, r, mode=mode, cache=cache, **common)
+    return _FORWARD[kind](cfg, p, x, r, mode=mode, cache=cache,
                           lengths=common["lengths"])
 
 
@@ -521,24 +535,28 @@ def _run_stack(cfg: ModelConfig, params, x, *, mode: str, cache,
                common: dict):
     """Every block of every group in order; each block reads and writes
     its own slice of ``cache`` (the shared attention block: one cache per
-    application)."""
+    application).  Returns (residual stream, the last block's branch
+    output), which :func:`_lm_logits` adds."""
+    r = None
     for gname, kind, n in layer_pattern(cfg):
         gcache = cache.get(gname) if cache is not None else None
         if kind == "shared_attn":
             c = _slice(gcache, 0) if gcache is not None else None
-            x = _block_forward(cfg, kind, params["shared_attn"], x,
-                               mode=mode, cache=c, common=common)
+            x, r = _block_forward(cfg, kind, params["shared_attn"], x, r,
+                                  mode=mode, cache=c, common=common)
             continue
         gp = params[gname]
         for i in range(n):
             c = _slice(gcache, i) if gcache is not None else None
-            x = _block_forward(cfg, kind, _slice(gp, i), x, mode=mode,
-                               cache=c, common=common)
-    return x
+            x, r = _block_forward(cfg, kind, _slice(gp, i), x, r, mode=mode,
+                                  cache=c, common=common)
+    return x, r
 
 
-def _lm_logits(cfg, params, x):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+def _lm_logits(cfg, params, x, r):
+    """The final norm, with the last block's pending branch ``r`` added in
+    it, and the LM head."""
+    _, x = add_rms_norm(x, r, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return linear(x, params["lm_head"])
@@ -571,11 +589,12 @@ def prefill_fn(cfg: ModelConfig, params, batch, *, max_len: int):
     sin, cos = make_rope(torch.arange(S, device=dev), cfg.hd,
                          cfg.rope_theta)
     cache = init_cache(cfg, B, max_len, device=dev)
-    x = _run_stack(cfg, params, x, mode="prefill", cache=cache,
-                   common=dict(sin=sin[None], cos=cos[None],
-                               lengths=lengths))
+    x, r = _run_stack(cfg, params, x, mode="prefill", cache=cache,
+                      common=dict(sin=sin[None], cos=cos[None],
+                                  lengths=lengths))
     cache["lengths"] = lengths
-    return _lm_logits(cfg, params, _last(x, lengths, S)), cache
+    return (_lm_logits(cfg, params, _last(x, lengths, S),
+                       _last(r, lengths, S)), cache)
 
 
 def decode_fn(cfg: ModelConfig, params, cache, tokens):
@@ -590,11 +609,11 @@ def decode_fn(cfg: ModelConfig, params, cache, tokens):
     x = params["embed"][tokens.long()[:, None]]
     pos = lengths.long() - 1
     sin, cos = make_rope(pos[:, None], cfg.hd, cfg.rope_theta)
-    x = _run_stack(cfg, params, x, mode="decode", cache=cache,
-                   common=dict(sin=sin, cos=cos, lengths=lengths,
-                               rolling=bool(cfg.sliding_window)))
+    x, r = _run_stack(cfg, params, x, mode="decode", cache=cache,
+                      common=dict(sin=sin, cos=cos, lengths=lengths,
+                                  rolling=bool(cfg.sliding_window)))
     cache["lengths"] = lengths
-    return _lm_logits(cfg, params, x[:, 0]), cache
+    return _lm_logits(cfg, params, x[:, 0], r[:, 0]), cache
 
 
 def supports_paged_stack(cfg: ModelConfig) -> bool:
@@ -638,16 +657,18 @@ def chunk_prefill_fn(cfg: ModelConfig, params, cache, tokens, offsets,
              ) & (posmat < L)
     rows, cols = valid.nonzero(as_tuple=True)
     wpos = posmat[rows, cols]
+    r = None
     for i in range(cfg.n_layers):
         p = _slice(params["blocks"], i)
-        q, k, v = _chunk_qkv(cfg, p, x, sin, cos)
+        x, q, k, v = _chunk_qkv(cfg, p, x, r, sin, cos)
         kc[i, rows, wpos] = k[rows, cols].to(kc.dtype)
         vc[i, rows, wpos] = v[rows, cols].to(vc.dtype)
         o = attn_lib.chunk_attention(q, kc[i], vc[i], q_pos=posmat,
                                      kv_len=kv_len)
-        x = _chunk_finish(cfg, p, x, o)
+        x, r = _chunk_finish(cfg, p, x, o)
     cache["lengths"] = kv_len.to(torch.int32)
-    return _lm_logits(cfg, params, _last(x, chunk_lens, C)), cache
+    return (_lm_logits(cfg, params, _last(x, chunk_lens, C),
+                       _last(r, chunk_lens, C)), cache)
 
 
 def paged_decode_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
@@ -685,10 +706,11 @@ def paged_decode_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
     L = tables.shape[1] * block_size
     wrows = (blk < nb_pool).nonzero(as_tuple=True)[0]
     wblk, woff = blk[wrows].long(), off[wrows].long()
+    r = None
     for i in range(cfg.n_layers):
         p = _slice(params["blocks"], i)
         kp, vp = k_pool[i], v_pool[i]
-        q, k, v = _chunk_qkv(cfg, p, x, sin, cos)
+        x, q, k, v = _chunk_qkv(cfg, p, x, r, sin, cos)
         kp[wblk, woff] = k[wrows, 0].to(kp.dtype)
         vp[wblk, woff] = v[wrows, 0].to(vp.dtype)
         if attn_impl == "kernel":
@@ -702,8 +724,8 @@ def paged_decode_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
             vc = vp[bt].reshape(n, L, *vp.shape[2:])
             o = attn_lib.decode_attention(q[:, 0].contiguous(), kc, vc,
                                           lengths)
-        x = _chunk_finish(cfg, p, x, o[:, None])
-    logits = _lm_logits(cfg, params, x[:, 0])
+        x, r = _chunk_finish(cfg, p, x, o[:, None])
+    logits = _lm_logits(cfg, params, x[:, 0], r[:, 0])
     return logits.argmax(-1).to(torch.int32), k_pool, v_pool
 
 
@@ -727,15 +749,16 @@ def paged_chunk_prefill_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
     L = tables.shape[1] * block_size
     rows, cols = (wblk < nb_pool).nonzero(as_tuple=True)
     pblk, poff = wblk[rows, cols].long(), woff[rows, cols].long()
+    r = None
     for i in range(cfg.n_layers):
         p = _slice(params["blocks"], i)
         kp, vp = k_pool[i], v_pool[i]
-        q, k, v = _chunk_qkv(cfg, p, x, sin, cos)
+        x, q, k, v = _chunk_qkv(cfg, p, x, r, sin, cos)
         kp[pblk, poff] = k[rows, cols].to(kp.dtype)
         vp[pblk, poff] = v[rows, cols].to(vp.dtype)
         kc = kp[bt].reshape(n, L, *kp.shape[2:])
         vc = vp[bt].reshape(n, L, *vp.shape[2:])
         o = attn_lib.chunk_attention(q, kc, vc, q_pos=posmat, kv_len=kv_len)
-        x = _chunk_finish(cfg, p, x, o)
-    return (_lm_logits(cfg, params, _last(x, chunk_lens, C)), k_pool,
-            v_pool)
+        x, r = _chunk_finish(cfg, p, x, o)
+    return (_lm_logits(cfg, params, _last(x, chunk_lens, C),
+                       _last(r, chunk_lens, C)), k_pool, v_pool)

@@ -7,7 +7,7 @@ modelled, so ``stats()``, every telemetry step and request row, every
 generation, the straggler ledger and the span trace are equal when the
 scheduling is — under every router family (round_robin, least_loaded,
 pod2, bfio, bfio_h2, pod_bfio_p2, bfio_affinity), in both fleet modes,
-on two scenarios; for the async fleet under both autoscalers, with
+on six scenarios; for the async fleet under both autoscalers, with
 drain handoffs.  The reference's ref and vec fleet modes are themselves
 bit-identical (its own gate), so each reference run is made once and
 held against both of the port's modes.  The host-side numpy modules
@@ -66,8 +66,16 @@ SCENARIO_RUNS = {"flash_crowd": dict(n_requests=16, seed=1),
                  "agentic": dict(n_requests=14, seed=2),
                  "diurnal": dict(n_requests=20, seed=1),
                  "flash_crowd_32": dict(n_requests=32, seed=1,
-                                        name="flash_crowd")}
-COMPARED = ["flash_crowd", "agentic"]     # the barrier fleet's scenarios
+                                        name="flash_crowd"),
+                 "steady": dict(n_requests=16, seed=3),
+                 "long_doc": dict(n_requests=12, seed=4),
+                 "trickle": dict(n_requests=12, seed=5),
+                 "multi_turn": dict(n_requests=18, seed=6)}
+# the barrier fleet's scenarios; multi_turn's later turns share their
+# session's prefix, which bfio_affinity and the LRU prefix cache act on
+COMPARED = ["flash_crowd", "agentic", "steady", "long_doc", "trickle",
+            "multi_turn"]
+SCENARIO_EC = {"multi_turn": dict(prefix_cache=True)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -146,7 +154,8 @@ def _reference(weights, router, scenario):
     """The reference's run of one (router, scenario), made once."""
     key = (router, scenario)
     if key not in _REF:
-        _REF[key] = _run("ref", weights, router, scenario)
+        _REF[key] = _run("ref", weights, router, scenario,
+                         ec_kw=SCENARIO_EC.get(scenario))
     return _REF[key]
 
 
@@ -160,7 +169,8 @@ def _assert_equal(got, want):
 @pytest.mark.parametrize("router", ROUTERS)
 def test_fleet_matches_reference(weights, router, scenario, fleet_mode):
     want = _reference(weights, router, scenario)
-    got = _run("port", weights, router, scenario, fleet_mode=fleet_mode)
+    got = _run("port", weights, router, scenario, fleet_mode=fleet_mode,
+               ec_kw=SCENARIO_EC.get(scenario))
     _assert_equal(got, want)
     assert got["stats"]["completed"] == SCENARIO_RUNS[scenario][
         "n_requests"]
@@ -175,6 +185,16 @@ def test_routing_steps_have_several_candidates(weights):
     routed = [r["t_routed"] for r in bfio["requests"]]
     assert max(routed.count(t) for t in set(routed)) >= 3
     assert bfio["assignments"] != rr["assignments"]
+
+
+def test_multi_turn_hits_the_prefix_cache(weights):
+    """multi_turn's comparison is not vacuous either: later turns hit
+    their session's cached prefix, and the affinity term moves requests
+    away from plain BF-IO's placement."""
+    aff = _reference(weights, "bfio_affinity", "multi_turn")
+    bfio = _reference(weights, "bfio", "multi_turn")
+    assert aff["stats"]["prefix_hits"] > 0
+    assert aff["assignments"] != bfio["assignments"]
 
 
 def test_traced_fleet_matches_reference(weights):

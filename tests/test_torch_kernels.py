@@ -33,6 +33,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 RMS_SHAPES = [(4, 32), (2, 7, 96), (1, 128), (5, 3, 2, 64)]
+# every width the port's paths norm over: xlstm 1024, zamba2 2048,
+# minitron 3072, granite-8b 4096 (and zamba2's d_inner), granite-34b 6144,
+# qwen2-72b 8192; the row counts of a decode step (1-33) and of prefill
+NORM_WIDTHS = [1024, 2048, 3072, 4096, 6144, 8192]
+NORM_ROWS = [1, 7, 32, 33, 132, 2048]
 PAGED_CASES = [(2, 4, 2, 32, 8, 4), (3, 8, 4, 64, 16, 5),
                (1, 16, 2, 128, 32, 3)]
 # (C, G, N, W, n_valid): the chip smoke's two shapes (the router's bucket
@@ -220,6 +225,49 @@ class TestRMSNormPlain:
         x = torch.empty((2, 8), device="meta")
         with pytest.raises(ValueError, match="device"):
             rk.rms_norm(x, torch.ones(8, device="meta"))
+
+    @pytest.mark.parametrize("width", NORM_WIDTHS)
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_add_plain_matches_model_layer(self, ref, width, dtype):
+        """The residual add + norm against the reference's
+        ``layers.rms_norm(x + r)``: the sum equal, the norm within the
+        kernel tolerance."""
+        jdt, tdt, tol = DTYPES[dtype]
+        x, sc = _rms_inputs((4, width), seed=1)
+        r, _ = _rms_inputs((4, width), seed=2)
+        jx, jr = ref.jnp.asarray(x, jdt), ref.jnp.asarray(r, jdt)
+        js = jx + jr
+        want = _np32(ref.model_rms_norm(js, ref.jnp.asarray(sc)))
+        s, got = rk.add_rms_norm_plain(torch.from_numpy(x).to(tdt),
+                                       torch.from_numpy(r).to(tdt),
+                                       torch.from_numpy(sc))
+        assert s.dtype == got.dtype == tdt
+        np.testing.assert_array_equal(_t32(s), _np32(js))
+        np.testing.assert_allclose(_t32(got), want, atol=tol, rtol=tol)
+
+    def test_cpu_add_wrapper_takes_plain_path(self):
+        x, sc = _rms_inputs((3, 64))
+        r, _ = _rms_inputs((3, 64), seed=1)
+        xt, rt, st = (torch.from_numpy(a) for a in (x, r, sc))
+        before = rk.rms_norm.launches
+        s, got = ops.add_rms_norm(xt, rt, st)
+        s0, want = rk.add_rms_norm_plain(xt, rt, st)
+        assert torch.equal(s, s0) and torch.equal(got, want)
+        assert torch.equal(s, xt + rt)
+        assert torch.equal(got, rk.rms_norm_plain(xt + rt, st))
+        assert rk.rms_norm.launches == before == 0
+
+    def test_model_layer_without_residual_is_the_norm(self):
+        from repro_torch.models import layers
+        x, sc = _rms_inputs((3, 64))
+        xt, st = torch.from_numpy(x), torch.from_numpy(sc)
+        s, got = layers.add_rms_norm(xt, None, st)
+        assert s is xt and torch.equal(got, rk.rms_norm_plain(xt, st))
+
+    def test_add_other_device_raises(self):
+        x = torch.empty((2, 8), device="meta")
+        with pytest.raises(ValueError, match="device"):
+            rk.add_rms_norm(x, x, torch.ones(8, device="meta"))
 
 
 class TestPagedAttentionPlain:
@@ -472,6 +520,71 @@ class TestKernelsOnCard:
         assert rk.rms_norm.launches == before + 1
         np.testing.assert_allclose(_t32(got), _t32(rk.rms_norm_plain(xt, st)),
                                    atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("rows", NORM_ROWS)
+    @pytest.mark.parametrize("width", NORM_WIDTHS)
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_rms_norm_rows_and_widths(self, cuda, rows, width, dtype):
+        """The norm and the fused add + norm at every path's width and at
+        decode and prefill row counts, each against its plain version; the
+        fused call's sum is PyTorch's and its norm bit-identical to
+        ``rms_norm(x + r)`` through the kernel."""
+        _, tdt, tol = DTYPES[dtype]
+        x, sc = _rms_inputs((rows, width), seed=rows)
+        r, _ = _rms_inputs((rows, width), seed=rows + 1)
+        xt = torch.from_numpy(x).to(cuda, tdt)
+        rt = torch.from_numpy(r).to(cuda, tdt)
+        st = torch.from_numpy(sc).to(cuda)
+        s0, want_add = rk.add_rms_norm_plain(xt, rt, st)
+        before = rk.rms_norm.launches
+        got = rk.rms_norm(xt, st)
+        s, got_add = rk.add_rms_norm(xt, rt, st)
+        unfused = rk.rms_norm(s0, st)
+        torch.cuda.synchronize()
+        assert rk.rms_norm.launches == before + 3
+        np.testing.assert_allclose(_t32(got), _t32(rk.rms_norm_plain(xt, st)),
+                                   atol=tol, rtol=tol)
+        np.testing.assert_allclose(_t32(got_add), _t32(want_add), atol=tol,
+                                   rtol=tol)
+        assert torch.equal(s, s0)
+        assert torch.equal(got_add, unfused)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_rms_norm_scalar_path(self, cuda, dtype):
+        """A width that does not divide the 16-byte pack, a misaligned x
+        and a row wider than the registers hold take the scalar kernel."""
+        _, tdt, tol = DTYPES[dtype]
+        for rows, width in ((7, 1001), (3, 102), (2, 20480)):
+            x, sc = _rms_inputs((rows, width), seed=width)
+            r, _ = _rms_inputs((rows, width), seed=width + 1)
+            xt = torch.from_numpy(x).to(cuda, tdt)
+            rt = torch.from_numpy(r).to(cuda, tdt)
+            st = torch.from_numpy(sc).to(cuda)
+            np.testing.assert_allclose(
+                _t32(rk.rms_norm(xt, st)), _t32(rk.rms_norm_plain(xt, st)),
+                atol=tol, rtol=tol)
+            s, got = rk.add_rms_norm(xt, rt, st)
+            assert torch.equal(s, xt + rt)
+            assert torch.equal(got, rk.rms_norm(xt + rt, st))
+        rows, width = 5, 4096
+        x, sc = _rms_inputs((rows, width), seed=3)
+        buf = torch.from_numpy(x).to(cuda, tdt).reshape(-1)
+        buf = torch.cat([buf[:1], buf])
+        xm = buf[1:].view(rows, width)             # 2 or 4 bytes off 16
+        assert xm.data_ptr() % 16 != 0
+        st = torch.from_numpy(sc).to(cuda)
+        got = rk.rms_norm(xm, st)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_t32(got), _t32(rk.rms_norm_plain(xm, st)),
+                                   atol=tol, rtol=tol)
+
+    def test_add_rms_norm_rejects_mismatched_operands(self, cuda):
+        x = torch.ones((4, 64), device=cuda)
+        st = torch.ones(64, device=cuda)
+        with pytest.raises(ValueError):
+            rk.add_rms_norm(x, x.to(torch.bfloat16), st)
+        with pytest.raises(ValueError):
+            rk.add_rms_norm(x, torch.ones((2, 64), device=cuda), st)
 
     @pytest.mark.parametrize("case", PAGED_CASES + [(32, 32, 8, 128, 16, 16),
                                       (2, 48, 1, 128, 16, 8),

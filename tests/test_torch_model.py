@@ -5,7 +5,10 @@ The granite-8b smoke config in float32: the reference's init goes
 through ``split_params`` and numpy into ``params_from_numpy``; prefill
 logits must agree within 1e-4 and paged decode must produce the same
 greedy tokens for 8 steps, with the port's ``"gather"`` oracle and with
-its ``"kernel"`` path (the plain version on the CPU).  float32 on the
+its ``"kernel"`` path (the plain version on the CPU).  The same checks run
+on the other dense arches, each of which carries a path granite-8b does
+not: granite-34b (one KV head, GELU MLP), minitron-4b (GELU MLP) and
+qwen2-72b (QKV biases, randomised before bridging; rope theta 1e6).  float32 on the
 CPU is where the two frameworks' rounding differences stay below any
 logit gap; bf16 is held kernel-against-plain on the card instead.
 """
@@ -49,14 +52,37 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 BS, MAX_LEN = 8, 64                    # paged block size, cache length
 
 
+# the other dense arches, each with a code path of its own
+OTHER_DENSE = ["granite-34b", "minitron-4b", "qwen2-72b"]
+
+
+def _bridged(arch):
+    """The reference's float32 smoke model and the port's on the same
+    weights.  The reference inits QKV biases at zero; they are drawn at
+    random first, so that the bias path is compared."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jparams, _ = split_params(jax_init_params(jcfg, jax.random.PRNGKey(0)))
+    tree = jax.tree.map(np.asarray, jparams)
+    attn = tree["blocks"]["attn"]
+    rng = np.random.default_rng(7)
+    for name in ("bq", "bk", "bv"):
+        if name in attn:
+            attn[name] = rng.normal(scale=0.5, size=attn[name].shape
+                                    ).astype(np.float32)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    tparams = params_from_numpy(tree, device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
 @pytest.fixture(scope="module")
 def models():
-    jcfg = dataclasses.replace(jax_smoke_config(ARCH), dtype="float32")
-    tcfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
-    jparams, _ = split_params(jax_init_params(jcfg, jax.random.PRNGKey(0)))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                device="cpu")
-    return jcfg, tcfg, jparams, tparams
+    return _bridged(ARCH)
+
+
+@pytest.fixture(scope="module", params=OTHER_DENSE)
+def other_models(request):
+    return _bridged(request.param)
 
 
 def _prompts(vocab, B=3, S=16, seed=0):
@@ -89,6 +115,10 @@ def test_bridge_bf16_goes_through_f32_exactly():
 
 
 def test_prefill_logits_match(models):
+    _check_prefill(models)
+
+
+def _check_prefill(models):
     jcfg, tcfg, jparams, tparams = models
     toks, lens = _prompts(tcfg.vocab_size)
     jl, jc = jax_prefill_fn(jcfg, jparams, {"tokens": jnp.asarray(toks),
@@ -125,6 +155,10 @@ def _paged_setup(cache_k, cache_v, lens, n_pool, seed=1):
 
 @pytest.mark.parametrize("attn_impl", ["gather", "kernel"])
 def test_paged_decode_greedy_tokens_match(models, attn_impl):
+    _check_paged_decode(models, attn_impl)
+
+
+def _check_paged_decode(models, attn_impl):
     jcfg, tcfg, jparams, tparams = models
     mesh = make_cpu_mesh()
     toks, lens = _prompts(tcfg.vocab_size)
@@ -204,6 +238,10 @@ def test_gather_and_kernel_attention_agree(models):
 
 
 def test_chunk_prefill_matches(models):
+    _check_chunk_prefill(models)
+
+
+def _check_chunk_prefill(models):
     jcfg, tcfg, jparams, tparams = models
     rng = np.random.default_rng(6)
     n, C = 3, 8
@@ -230,6 +268,35 @@ def test_chunk_prefill_matches(models):
                                np.asarray(jc["blocks"]["k"]), **TOL)
     np.testing.assert_array_equal(tc["lengths"].numpy(),
                                   np.asarray(jc["lengths"]))
+
+
+def test_other_dense_prefill_logits_match(other_models):
+    _check_prefill(other_models)
+
+
+@pytest.mark.parametrize("attn_impl", ["gather", "kernel"])
+def test_other_dense_paged_decode_greedy_tokens_match(other_models,
+                                                      attn_impl):
+    _check_paged_decode(other_models, attn_impl)
+
+
+def test_other_dense_chunk_prefill_matches(other_models):
+    _check_chunk_prefill(other_models)
+
+
+def test_other_dense_paths_are_taken(other_models):
+    """Each arch reaches the path it is here for."""
+    _, tcfg, _, tparams = other_models
+    attn = tparams["blocks"]["attn"]
+    if tcfg.name.startswith("granite-34b"):
+        assert tcfg.n_kv_heads == 1 and tcfg.mlp_variant == "gelu"
+    elif tcfg.name.startswith("minitron"):
+        assert tcfg.mlp_variant == "gelu"
+    else:
+        assert tcfg.qkv_bias and tcfg.rope_theta == 1e6
+        assert all(attn[b].abs().min() > 0 for b in ("bq", "bk", "bv"))
+    assert ("w_gate" in tparams["blocks"]["ffn"]) == (
+        tcfg.mlp_variant == "swiglu")
 
 
 def test_init_cache_shape(models):
