@@ -29,9 +29,12 @@ result line):
    printed and kept in their rows.  The
    chunked-scan kernel (K5) on float32 inputs as the models pass them, at
    zamba2's prefill shape (B=32, S=64, H=32, dk=64, dv=128, chunk 64), at
-   xlstm's (H=4, dk=512, dv=513) and at a ragged S that
-   ``ops.ssm_chunk_scan`` pads, held against its plain version at 1e-3 (y
-   and the final state).  The
+   xlstm's (H=4, dk=512, dv=513), at a ragged S that
+   ``ops.ssm_chunk_scan`` pads, at xlstm's widths over four chunks
+   from a nonzero initial state and at both families' widths with the
+   chunk of 128 that a prefill of 128 tokens or more gets, held against
+   its plain version at 1e-3 (y and the final state); each case also
+   times its scores pass alone and prints its share of the bound.  The
    BF-IO swap-search kernel (K4) at the fleet router's shape (C=1, G=4,
    N=64, W=1, integer loads) and at pod scale (C=8, G=32, N=512, W=9,
    random floats, ragged ``valid``, ``assign`` with -1s), held against its
@@ -674,10 +677,11 @@ def phase_decode_attention(dev, flush):
                 cases=[{k: c[k] for k in _CASE_KEYS} for c in cases[1:]])
 
 
-def _ssm_case(dev, flush, B, S, H, dk, dv, chunk, *, seed):
+def _ssm_case(dev, flush, B, S, H, dk, dv, chunk, *, seed, init=False):
     """K5 on float32 inputs (the reference's fixture: a <= 0, g >= 0),
     through ``ops.ssm_chunk_scan`` (which pads a ragged S), against the
-    plain version on the same padded inputs."""
+    plain version on the same padded inputs; with ``init``, from a
+    nonzero initial state.  Also times the scores pass alone."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssm_scan as ss
@@ -687,61 +691,95 @@ def _ssm_case(dev, flush, B, S, H, dk, dv, chunk, *, seed):
     v = torch.randn((B, S, H, dv), generator=g, device=dev)
     a = -torch.randn((B, S, H), generator=g, device=dev).abs()
     gi = torch.randn((B, S, H), generator=g, device=dev).abs()
+    s0 = (0.1 * torch.randn((B, H, dk, dv), generator=g, device=dev)
+          if init else None)
     pad = (-S) % chunk
     Sp = S + pad
 
     def padseq(x):
         return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
 
-    y, st = ops.ssm_chunk_scan(q, k, v, a, gi, chunk=chunk)
+    y, st = ops.ssm_chunk_scan(q, k, v, a, gi, chunk=chunk,
+                               initial_state=s0)
     padded = [padseq(x) for x in (q, k, v, a, gi)]
-    y0, st0 = ss.ssm_chunk_scan_plain(*padded, chunk=chunk)
+    y0, st0 = ss.ssm_chunk_scan_plain(*padded, chunk=chunk, initial_state=s0)
     tol = dict(atol=1e-3, rtol=1e-3)
     err = max(compare("ssm_chunk_scan y", y, y0[:, :S], tol),
               compare("ssm_chunk_scan state", st, st0, tol))
-    ms = time_ms(lambda: ss.ssm_chunk_scan(*padded, chunk=chunk),
-                 flush=flush)
-    plain_ms = time_ms(lambda: ss.ssm_chunk_scan_plain(*padded, chunk=chunk),
-                       flush=flush)
-    # bytes: q, k, v, a, g read once, y and the state written once;
-    # operations: the chunked form's multiply-adds (lower-triangle scores
-    # and W v, q . S_prev and the state update), two flops each
+    ms = time_ms(lambda: ss.ssm_chunk_scan(*padded, chunk=chunk,
+                                           initial_state=s0), flush=flush)
+    qp, kp, _, ap, gp = padded
+    scores_ms = time_ms(lambda: ss.scores_pass(qp, kp, ap, gp, chunk=chunk),
+                        flush=flush)
+    plain_ms = time_ms(lambda: ss.ssm_chunk_scan_plain(
+        *padded, chunk=chunk, initial_state=s0), flush=flush)
+    # bytes: q, k, v, a, g (and an initial state) read once, y and the
+    # state written once; operations: the multiply-adds the call needs,
+    # two flops each: the lower-triangle scores and W v of every chunk,
+    # q . S_prev and the state update of every chunk but chunk 0's
+    # q . S_prev when there is no initial state (its state is zero).  The
+    # chunked form with that product counted, as earlier rows were bound,
+    # is printed beside it.  The workspace's traffic is not in the bound.
     nc = Sp // chunk
     tri = chunk * (chunk + 1) // 2
-    fma = B * H * nc * (tri * (dk + dv) + 2 * chunk * dk * dv)
-    nbytes = 4 * (B * Sp * H * (2 * dk + 2 * dv + 2) + B * H * dk * dv)
+    fma = B * H * (nc * tri * (dk + dv)
+                   + (2 * nc - (0 if init else 1)) * chunk * dk * dv)
+    fma_chunked = B * H * nc * (tri * (dk + dv) + 2 * chunk * dk * dv)
+    nbytes = 4 * (B * Sp * H * (2 * dk + 2 * dv + 2)
+                  + (2 if init else 1) * B * H * dk * dv)
     b_ms, b_by = bound(nbytes, 2.0 * fma)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+    p = ss.plan(B, Sp, H, dk, dv, chunk)
+    return dict(max_abs_err=err, ms=ms, scores_ms=scores_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / ms,
+                bound_ms_chunked_form=bound(nbytes, 2.0 * fma_chunked)[0],
+                library_ms=None, workspace_mb=p.workspace_bytes / 1e6,
+                tile_v=p.tile_v,
                 shape=f"B={B} S={S}" + (f" (padded to {Sp})" if pad else "")
-                      + f" H={H} dk={dk} dv={dv} chunk={chunk} f32")
+                      + f" H={H} dk={dk} dv={dv} chunk={chunk} f32"
+                      + (", initial state" if init else ""))
+
+
+_SSM_KEYS = ("shape", "ms", "scores_ms", "plain_ms", "bound_ms", "bound_by",
+             "bound_share", "bound_ms_chunked_form", "workspace_mb",
+             "tile_v", "max_abs_err")
 
 
 def phase_ssm_scan(dev, flush):
     """K5 at zamba2's prefill shape (the row's numbers), xlstm's mLSTM
-    shape and a ragged S."""
+    shape, a ragged S, xlstm's widths over four chunks from a nonzero
+    initial state, and both families at the chunk of 128 the models pass
+    for a prefill of 128 tokens or more."""
     cases = [
         _ssm_case(dev, flush, 32, 64, 32, 64, 128, 64, seed=31),
         _ssm_case(dev, flush, 32, 64, 4, 512, 513, 64, seed=32),
         _ssm_case(dev, flush, 8, 100, 32, 64, 128, 64, seed=33),
+        _ssm_case(dev, flush, 8, 256, 4, 512, 513, 64, seed=34, init=True),
+        _ssm_case(dev, flush, 32, 256, 32, 64, 128, 128, seed=35),
+        _ssm_case(dev, flush, 32, 256, 4, 512, 513, 128, seed=36),
     ]
     for c in cases:
         print(f"kernel ssm_chunk_scan [{c['shape']}]: {c['ms'] * 1e3:.2f} us"
-              f" (bound {c['bound_ms'] * 1e3:.2f} us by {c['bound_by']}), "
-              f"plain {c['plain_ms'] * 1e3:.2f} us, library none, max abs "
-              f"err {c['max_abs_err']:.3e}")
+              f" (scores pass alone {c['scores_ms'] * 1e3:.2f} us; bound "
+              f"{c['bound_ms'] * 1e3:.2f} us by {c['bound_by']}, "
+              f"{100 * c['bound_share']:.1f}% of it; chunked-form bound "
+              f"{c['bound_ms_chunked_form'] * 1e3:.2f} us; workspace "
+              f"{c['workspace_mb']:.2f} MB written and read, not in the "
+              f"bound; dv tile {c['tile_v']}), plain "
+              f"{c['plain_ms'] * 1e3:.2f} us (kernel / plain "
+              f"{c['ms'] / c['plain_ms']:.2f}x), library none, max abs err "
+              f"{c['max_abs_err']:.3e}")
     main = cases[0]
     return dict(name="ssm_chunk_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssm_scan.cu",
                 replaces="src/repro/kernels/ssm_scan.py:73",
                 **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
-                                        "library_ms", "shape")},
+                                        "library_ms", "shape", "scores_ms",
+                                        "bound_share",
+                                        "bound_ms_chunked_form")},
                 max_abs_err_all=max(c["max_abs_err"] for c in cases),
-                cases=[{k: c[k] for k in ("shape", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "max_abs_err")}
-                       for c in cases[1:]])
+                cases=[{k: c[k] for k in _SSM_KEYS} for c in cases[1:]])
 
 
 def phase_cross_device_slot(dev):
@@ -936,7 +974,8 @@ def main() -> None:
           f"us by time_ms (sleep kernel, L2 flush, CUDA events)")
     for phase in (phase_paged_attention, phase_decode_attention):
         kernels.append(dict(phase(dev, flush), timing_floor_ms=floor_ms))
-    kernels.append(phase_ssm_scan(dev, flush))
+    kernels.append(dict(phase_ssm_scan(dev, flush),
+                        timing_floor_ms=floor_ms))
     del flush
 
     kernels.append(phase_bfio_swap(dev))
@@ -1017,8 +1056,10 @@ def main() -> None:
         row["launches_by_path"] = by_path
         row["matched"] = True
         row.update({key: k[key] for key in (
-            "kernel_only_ms", "at_pod_scale", "shape", "max_abs_err_all",
-            "cases", "timing_floor_ms") if key in k})
+            "kernel_only_ms", "scores_ms", "bound_share",
+            "bound_ms_chunked_form", "at_pod_scale",
+            "shape", "max_abs_err_all", "cases", "timing_floor_ms")
+            if key in k})
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -17,34 +17,36 @@ with every exponent clipped to +-60 before ``exp``.
 On an H100 the kernel (``csrc/ssm_scan.cu``) is bound by its float32
 operations at the model's shapes (the intra-chunk C x C form and the
 (dk x dv) state products; at xlstm's dk = 512 they outweigh the bytes).
-Its design: each dv column of the state evolves on its own, so the grid is
-(B * H, ceil(dv / 32)) and each block keeps its (dk x 32) fp32 state slice
-in shared memory across a loop over the chunks, which takes the place of
-the TPU's sequential grid axis.  Per chunk it streams q and k through
-shared memory in 32-wide dk slabs, accumulating the C x C scores in
-registers (an R x R micro-tile per thread) and q . S_prev beside them,
-then forms the masked decay-weighted matrix, y, and the state update.  The
-scores are recomputed for every dv tile.  A state slice of xlstm's mLSTM
-(512 x 513 fp32 per head) would not fit one block's shared memory: the dv
-split is what makes it fit.
+It runs as two passes from one call.  The scores pass, one block per
+(b, h, chunk), forms A = cumsum(a) and the masked decay-weighted scores
+W = tril(exp(clip(A_t - A_s))) g_s (q k^T) once per chunk and writes them,
+with exp(clip(A_t)) and the state-update weights, to a workspace this
+wrapper allocates.  The scan pass, one block per (b, h, dv tile), keeps a
+(dk x tile) fp32 state slice in shared memory and walks the chunks in
+order; every product in it is register-tiled.  With no initial state the
+first chunk skips the products with the zero state.  :func:`plan` sizes
+both passes before any launch and refuses what does not fit.
 
 :func:`ssm_chunk_scan` is the wrapper: on a CPU tensor it runs
-:func:`ssm_chunk_scan_plain`; on a CUDA tensor it launches the kernel or
-raises.  ``ssm_chunk_scan.launches`` counts launches.
+:func:`ssm_chunk_scan_plain`; on a CUDA tensor it launches both passes or
+raises.  ``ssm_chunk_scan.launches`` counts calls that launched them.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["ssm_chunk_scan", "ssm_chunk_scan_plain", "smem_bytes"]
+__all__ = ["ssm_chunk_scan", "ssm_chunk_scan_plain", "plan", "Plan",
+           "scores_pass"]
 
 CLIP = 60.0
-TILE_V = 32          # dv columns per block
-_SLAB = 32           # dk rows per shared-memory slab
+TILES_V = (64, 32)   # the scan pass's dv tile, the widest that fits first
+_SLAB_SCORES = 32    # dk columns a scores-pass slab
+_SLAB_SCAN = 64      # dk columns a scan-pass slab
 _SMEM_MAX = 232448   # the H100's shared memory per block, in bytes
+_GRID_Y_MAX = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -99,10 +101,55 @@ def ssm_chunk_scan_plain(q, k, v, log_decay, gate, *, chunk: int,
     return y.reshape(B, S, H, dv).to(v.dtype), state
 
 
-def smem_bytes(chunk: int, dk: int) -> int:
-    """Shared memory one block of the kernel needs (see the .cu file)."""
-    return 4 * (chunk * chunk + 2 * chunk * (_SLAB + 1) + dk * TILE_V
-                + chunk * TILE_V + 3 * chunk)
+class Plan(NamedTuple):
+    """The launch plan of one call: the chunk padded to the kernel's
+    template (``cp``), the scan pass's dv tile, each pass's shared memory
+    a block and the scores workspace, in bytes."""
+    cp: int
+    tile_v: int
+    scores_smem: int
+    scan_smem: int
+    workspace_bytes: int
+
+
+def _padded_chunk(chunk: int) -> int:
+    return next(cp for cp in (16, 32, 64, 128) if chunk <= cp)
+
+
+def _scores_smem(cp: int) -> int:
+    # two stages of a q and a k slab, A and g
+    return 4 * (2 * 2 * cp * (_SLAB_SCORES + 4) + 2 * cp)
+
+
+def _scan_smem(cp: int, dk: int, tile_v: int) -> int:
+    # the state slice, the v tile, W, two stages of a q or k slab, eA, wk
+    dk_pad = -(-dk // _SLAB_SCAN) * _SLAB_SCAN
+    return 4 * (dk_pad * tile_v + cp * tile_v + cp * (cp + 4)
+                + 2 * cp * (_SLAB_SCAN + 4) + 2 * cp)
+
+
+def plan(B: int, S: int, H: int, dk: int, dv: int, chunk: int) -> Plan:
+    """Size both passes of one call, as ``ssm_scan_plan_bytes`` in the .cu
+    file does.  The dv tile is the widest of ``TILES_V`` whose scan block
+    fits the card's shared memory.  Raises ValueError for a shape the
+    kernel cannot take, before anything is allocated or launched."""
+    if not 1 <= chunk <= 128 or S % chunk:
+        raise ValueError(f"ssm_chunk_scan kernel needs 1 <= chunk <= 128 "
+                         f"dividing S (S={S}, chunk={chunk}); pad through "
+                         f"ops.ssm_chunk_scan")
+    cp = _padded_chunk(chunk)
+    fits = [tv for tv in TILES_V if _scan_smem(cp, dk, tv) <= _SMEM_MAX]
+    if not fits:
+        raise ValueError(f"ssm_chunk_scan kernel: chunk={chunk}, dk={dk} "
+                         f"needs {_scan_smem(cp, dk, TILES_V[-1])} bytes of "
+                         f"shared memory a block at the narrowest dv tile, "
+                         f"more than the {_SMEM_MAX} a block has")
+    tile_v = fits[0]
+    if -(-dv // tile_v) > _GRID_Y_MAX:
+        raise ValueError(f"ssm_chunk_scan kernel: dv={dv} needs more than "
+                         f"{_GRID_Y_MAX} tiles of {tile_v}")
+    ws = 4 * B * H * (S // chunk) * (cp * cp + 2 * cp)
+    return Plan(cp, tile_v, _scores_smem(cp), _scan_smem(cp, dk, tile_v), ws)
 
 
 def _lib():
@@ -110,10 +157,52 @@ def _lib():
     lib = load("ssm_scan.cu")
     fn = lib.ssm_chunk_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.ssm_scan_plan_bytes.argtypes = [ctypes.c_int] * 4
+        lib.ssm_scan_plan_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _launch(p: Plan, q, k, v, log_decay, gate, initial_state, y, state,
+            chunk):
+    """Allocate the workspace on the caller's device and launch both passes
+    on the current stream, or the scores pass alone where ``v`` is None."""
+    B, S, H, dk = q.shape
+    dv = v.shape[-1] if v is not None else 0
+    ws = torch.empty(p.workspace_bytes // 4, dtype=torch.float32,
+                     device=q.device)
+    # float32 rows the kernel may copy 16 bytes at a time: q and k (bit 0),
+    # v and the state (bit 1)
+    vec = (int(dk % 4 == 0 and q.data_ptr() % 16 == 0
+               and k.data_ptr() % 16 == 0)
+           | 2 * int(v is not None and dv % 4 == 0
+                     and v.data_ptr() % 16 == 0))
+    rc = _lib().ssm_chunk_scan_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr() if v is not None else 0,
+        log_decay.data_ptr(), gate.data_ptr(),
+        initial_state.data_ptr() if initial_state is not None else 0,
+        y.data_ptr() if y is not None else 0,
+        state.data_ptr() if state is not None else 0, ws.data_ptr(), B, S, H,
+        dk, dv, chunk, p.tile_v, int(initial_state is not None),
+        _DTYPES[q.dtype], vec, int(v is None),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssm_chunk_scan kernel launch failed: CUDA "
+                           f"error {rc}")
+    return ws
+
+
+def scores_pass(q, k, log_decay, gate, *, chunk: int) -> torch.Tensor:
+    """The scores pass alone, on CUDA tensors that ``ssm_chunk_scan``
+    takes, for timing it on its own: returns the workspace, one record of
+    W [cp][cp], exp(clip(A)) [cp] and the state-update weights [cp] per
+    (b, h, chunk).  Not counted in ``ssm_chunk_scan.launches``."""
+    B, S, H, dk = q.shape
+    # the plan's workspace and scores-pass sizes do not depend on dv
+    return _launch(plan(B, S, H, dk, 1, chunk), q, k, None, log_decay, gate,
+                   None, None, None, chunk)
 
 
 def ssm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -143,14 +232,7 @@ def ssm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, log_decay "
                          f"{tuple(log_decay.shape)}, gate "
                          f"{tuple(gate.shape)} do not agree")
-    if not 1 <= chunk <= 128 or S % chunk:
-        raise ValueError(f"ssm_chunk_scan kernel needs 1 <= chunk <= 128 "
-                         f"dividing S (S={S}, chunk={chunk}); pad through "
-                         f"ops.ssm_chunk_scan")
-    if smem_bytes(chunk, dk) > _SMEM_MAX:
-        raise ValueError(f"ssm_chunk_scan kernel: chunk={chunk}, dk={dk} "
-                         f"needs {smem_bytes(chunk, dk)} bytes of shared "
-                         f"memory, more than a block has")
+    p = plan(B, S, H, dk, dv, chunk)
     tensors = [("q", q), ("k", k), ("v", v), ("log_decay", log_decay),
                ("gate", gate)]
     if initial_state is not None:
@@ -171,15 +253,7 @@ def ssm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             state.zero_()
         return y, state
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                log_decay.data_ptr(), gate.data_ptr(),
-                initial_state.data_ptr() if initial_state is not None else 0,
-                y.data_ptr(), state.data_ptr(), B, S, H, dk, dv, chunk,
-                int(initial_state is not None), _DTYPES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ssm_chunk_scan kernel launch failed: CUDA "
-                           f"error {rc}")
+    _launch(p, q, k, v, log_decay, gate, initial_state, y, state, chunk)
     ssm_chunk_scan.launches += 1
     return y, state
 

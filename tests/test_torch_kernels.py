@@ -482,6 +482,52 @@ class TestSSMScanPlain:
         assert ss.ssm_chunk_scan.launches == before == 0
 
 
+# (B, S, H, dk, dv, chunk) -> (padded chunk, dv tile, scores-pass and
+# scan-pass shared memory a block, workspace bytes), worked out by hand
+# from the layouts in csrc/ssm_scan.cu: every K5 shape of chip_smoke.py,
+# zamba2-1.2b's and xlstm-350m's prefill at chunk 64 and at the models'
+# chunk of 128, and the reference sweep's odd widths
+SSM_PLANS = {
+    (32, 64, 32, 64, 128, 64): (64, 64, 37376, 85504, 17301504),
+    (32, 64, 4, 512, 513, 64): (64, 64, 37376, 200192, 2162688),
+    (8, 128, 32, 64, 128, 64): (64, 64, 37376, 85504, 8650752),
+    (8, 256, 4, 512, 513, 64): (64, 64, 37376, 200192, 2162688),
+    (32, 256, 32, 64, 128, 128): (128, 64, 74752, 187392, 136314880),
+    (32, 256, 4, 512, 513, 128): (128, 32, 74752, 220160, 17039360),
+    (1, 48, 4, 32, 33, 16): (16, 64, 9344, 30592, 13824),
+    (2, 40, 3, 16, 8, 40): (64, 64, 37376, 85504, 101376),
+}
+
+
+class TestSSMScanPlan:
+    """The wrapper's launch plan, computed in Python before any launch."""
+
+    @pytest.mark.parametrize("shape", list(SSM_PLANS))
+    def test_plan_bytes(self, shape):
+        p = ss.plan(*shape)
+        assert tuple(p) == SSM_PLANS[shape]
+        assert max(p.scores_smem, p.scan_smem) <= 232448
+
+    @pytest.mark.parametrize("shape, match", [
+        ((1, 256, 1, 2048, 8, 128), "shared memory"),
+        ((1, 64, 1, 8, 8, 129), "chunk"),
+        ((1, 64, 1, 8, 8, 24), "dividing S"),
+        ((1, 64, 1, 8, 8, 0), "chunk"),
+    ])
+    def test_plan_refuses(self, shape, match):
+        with pytest.raises(ValueError, match=match):
+            ss.plan(*shape)
+
+    def test_tile_narrows_only_when_needed(self):
+        """dk = 512 fits the 64-wide tile at chunk 64 but not at 128, and
+        the largest dk at the 32-wide tile and chunk 128 still plans."""
+        assert ss.plan(1, 128, 1, 512, 64, 64).tile_v == 64
+        assert ss.plan(1, 128, 1, 512, 64, 128).tile_v == 32
+        assert ss.plan(1, 128, 1, 576, 64, 128).scan_smem <= 232448
+        with pytest.raises(ValueError):
+            ss.plan(1, 128, 1, 640, 64, 128)
+
+
 class TestSwapWrapper:
     def test_cpu_wrapper_takes_plain_path(self):
         args = _swap_inputs(2, 4, 33, 3, None, seed=4)
@@ -829,6 +875,147 @@ class TestKernelsOnCard:
                                           initial_state=s0)
         np.testing.assert_allclose(_t32(y), _t32(y0), atol=tol, rtol=tol)
         np.testing.assert_allclose(_t32(s), _t32(st0), atol=1e-3, rtol=1e-3)
+
+    def _ssm_on_card(self, cuda, case, seed, init_scale=None):
+        B, S, H, dk, dv, chunk = case
+        args = [torch.from_numpy(x).to(cuda)
+                for x in _ssm_inputs(B, S, H, dk, dv, seed=seed)]
+        s0 = None
+        if init_scale is not None:
+            s0 = init_scale * torch.randn(
+                (B, H, dk, dv), device=cuda,
+                generator=torch.Generator(cuda).manual_seed(seed))
+        return args, s0
+
+    def test_ssm_zero_state_equals_no_state(self, cuda):
+        """A state of zeros takes the full path (the skip is keyed on the
+        pointer), and gives exactly the no-state result."""
+        args, z = self._ssm_on_card(cuda, (2, 192, 4, 64, 129, 64), 15, 0.0)
+        y0, s0 = ss.ssm_chunk_scan(*args, chunk=64)
+        y1, s1 = ss.ssm_chunk_scan(*args, chunk=64, initial_state=z)
+        torch.cuda.synchronize()
+        assert torch.equal(y0, y1) and torch.equal(s0, s1)
+
+    @pytest.mark.parametrize("case", [(2, 256, 4, 512, 513, 64),
+                                      (8, 256, 4, 512, 513, 64)])
+    def test_ssm_nonzero_state_over_chunks(self, cuda, case):
+        """A nonzero state over four chunks at xlstm's widths: the
+        products with the state run, and differ from the no-state call."""
+        args, s0 = self._ssm_on_card(cuda, case, 16, 0.1)
+        y, s = ss.ssm_chunk_scan(*args, chunk=64, initial_state=s0)
+        y0, st0 = ss.ssm_chunk_scan_plain(*args, chunk=64, initial_state=s0)
+        np.testing.assert_allclose(_t32(y), _t32(y0), atol=1e-3, rtol=1e-3)
+        np.testing.assert_allclose(_t32(s), _t32(st0), atol=1e-3, rtol=1e-3)
+        yz, _ = ss.ssm_chunk_scan(*args, chunk=64)
+        assert (y[:, :64] - yz[:, :64]).abs().max().item() > 1e-2
+
+    @pytest.mark.parametrize("case", [(32, 256, 32, 64, 128, 128),
+                                      (32, 256, 4, 512, 513, 128)])
+    def test_ssm_models_chunk_128(self, cuda, case):
+        """Both families' widths at the chunk of 128 the models pass for a
+        prefill of 128 tokens or more; xlstm's widths take the 32-wide dv
+        tile there without a monkeypatch."""
+        args, _ = self._ssm_on_card(cuda, case, 21)
+        y, s = ss.ssm_chunk_scan(*args, chunk=case[-1])
+        y0, st0 = ss.ssm_chunk_scan_plain(*args, chunk=case[-1])
+        np.testing.assert_allclose(_t32(y), _t32(y0), atol=1e-3, rtol=1e-3)
+        np.testing.assert_allclose(_t32(s), _t32(st0), atol=1e-3, rtol=1e-3)
+
+    @pytest.mark.parametrize("case", [(2, 128, 3, 64, 100, 64),
+                                      (3, 64, 2, 96, 70, 32),
+                                      (2, 96, 2, 40, 65, 48)])
+    @pytest.mark.parametrize("init", [False, True])
+    def test_ssm_ragged_widths(self, cuda, case, init):
+        """dv not a multiple of the dv tile, dk not a multiple of the
+        64-row slab, a chunk that is not a template size."""
+        args, s0 = self._ssm_on_card(cuda, case, 17, 0.1 if init else None)
+        y, s = ss.ssm_chunk_scan(*args, chunk=case[-1], initial_state=s0)
+        y0, st0 = ss.ssm_chunk_scan_plain(*args, chunk=case[-1],
+                                          initial_state=s0)
+        np.testing.assert_allclose(_t32(y), _t32(y0), atol=1e-3, rtol=1e-3)
+        np.testing.assert_allclose(_t32(s), _t32(st0), atol=1e-3, rtol=1e-3)
+
+    @pytest.mark.parametrize("S", [1, 40, 63])
+    def test_ssm_one_short_chunk_via_ops(self, cuda, S):
+        """S < chunk: ops.ssm_chunk_scan pads to one chunk of 64."""
+        args, _ = self._ssm_on_card(cuda, (4, S, 32, 64, 128, 64), 18)
+        y, s = ops.ssm_chunk_scan(*args, chunk=64)
+        y0, s0 = ops.ssm_chunk_scan(*[a.cpu() for a in args], chunk=64)
+        assert tuple(y.shape) == (4, S, 32, 128)
+        np.testing.assert_allclose(_t32(y), _t32(y0), atol=1e-3, rtol=1e-3)
+        np.testing.assert_allclose(_t32(s), _t32(s0), atol=1e-3, rtol=1e-3)
+
+    @pytest.mark.parametrize("init", [False, True])
+    def test_ssm_narrow_tile(self, cuda, monkeypatch, init):
+        """The 32-wide dv tile, which only wide states take on their own,
+        at zamba2's widths."""
+        monkeypatch.setattr(ss, "TILES_V", (32,))
+        args, s0 = self._ssm_on_card(cuda, (2, 128, 4, 64, 128, 64), 19,
+                                     0.1 if init else None)
+        assert ss.plan(2, 128, 4, 64, 128, 64).tile_v == 32
+        y, s = ss.ssm_chunk_scan(*args, chunk=64, initial_state=s0)
+        y0, st0 = ss.ssm_chunk_scan_plain(*args, chunk=64, initial_state=s0)
+        np.testing.assert_allclose(_t32(y), _t32(y0), atol=1e-3, rtol=1e-3)
+        np.testing.assert_allclose(_t32(s), _t32(st0), atol=1e-3, rtol=1e-3)
+
+    @pytest.mark.parametrize("shape", list(SSM_PLANS))
+    def test_ssm_plan_matches_kernel(self, cuda, shape):
+        """The Python plan and the launcher's own sizes agree."""
+        B, S, H, dk, dv, chunk = shape
+        p = ss.plan(*shape)
+        fn = ss._lib().ssm_scan_plan_bytes
+        assert fn(chunk, dk, p.tile_v, 0) == p.scores_smem
+        assert fn(chunk, dk, p.tile_v, 1) == p.scan_smem
+        assert 4 * fn(chunk, dk, p.tile_v, 2) * B * H * (S // chunk) \
+            == p.workspace_bytes
+
+    def test_ssm_refuses_before_launch(self, cuda):
+        z = torch.zeros((1, 128, 1, 2048), device=cuda)
+        v = torch.zeros((1, 128, 1, 8), device=cuda)
+        a = torch.zeros((1, 128, 1), device=cuda)
+        before = ss.ssm_chunk_scan.launches
+        with pytest.raises(ValueError, match="shared memory"):
+            ss.ssm_chunk_scan(z, z, v, a, a, chunk=128)
+        assert ss.ssm_chunk_scan.launches == before
+
+    def test_ssm_scores_pass_alone(self, cuda):
+        """The scores pass's record: W, exp(clip(A)) and the state-update
+        weights of each chunk, against the plain formulas."""
+        B, S, H, dk, dv, C = 2, 128, 3, 64, 16, 64
+        args, _ = self._ssm_on_card(cuda, (B, S, H, dk, dv, C), 20)
+        q, k, _, a, g = args
+        q, k, _, a, g = args
+        ws = ss.scores_pass(q, k, a, g, chunk=C).view(B, H, S // C,
+                                                      C * C + 2 * C)
+        n = S // C
+        qc = q.view(B, n, C, H, dk).permute(0, 3, 1, 2, 4)
+        kc = k.view(B, n, C, H, dk).permute(0, 3, 1, 2, 4)
+        A = torch.cumsum(a.view(B, n, C, H).permute(0, 3, 1, 2), dim=-1)
+        gc = g.view(B, n, C, H).permute(0, 3, 1, 2)
+        W = (qc @ kc.transpose(-1, -2)) \
+            * torch.tril(ss._exp_clip(A[..., :, None] - A[..., None, :])) \
+            * gc[..., None, :]
+        wk = ss._exp_clip(A[..., -1:] - A) * gc
+        for got, want in ((ws[..., :C * C].view(B, H, n, C, C), W),
+                          (ws[..., C * C:C * C + C], ss._exp_clip(A)),
+                          (ws[..., C * C + C:], wk)):
+            np.testing.assert_allclose(_t32(got), _t32(want), atol=1e-3,
+                                       rtol=1e-3)
+
+    def test_ssm_cumsum_in_plain_order(self, cuda):
+        """The scores pass sums A = cumsum(a) left to right, as the plain
+        version's ``torch.cumsum`` does, so exp(clip(A)) agrees to an ulp
+        or two.  A parallel scan rounds A differently: at chunk 128 |A|
+        reaches ~100, a few ulps of A are ~1e-5 of exp(A), and that moved
+        y past the 1e-3 gate where a row cancels."""
+        B, S, H, dk, C = 4, 256, 32, 64, 128
+        args, _ = self._ssm_on_card(cuda, (B, S, H, dk, 8, C), 22)
+        q, k, _, a, g = args
+        ws = ss.scores_pass(q, k, a, g, chunk=C).view(B, H, S // C,
+                                                      C * C + 2 * C)
+        A = torch.cumsum(a.view(B, S // C, C, H), dim=2).permute(0, 3, 1, 2)
+        np.testing.assert_allclose(_t32(ws[..., C * C:C * C + C]),
+                                   _t32(ss._exp_clip(A)), rtol=2e-6, atol=0)
 
     def test_ssm_ragged_pad_on_card(self, cuda):
         args = [torch.from_numpy(x).to(cuda)
