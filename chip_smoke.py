@@ -49,12 +49,23 @@ result line):
    ``AsyncFleetServer`` with the utilization autoscaler; then the slot
    backend with granite-8b-smoke (synchronous and chunked prefill),
    zamba2-1.2b-smoke and xlstm-350m-smoke.  Stats (and telemetry rows)
-   and generations equal.
+   and generations equal.  zamba2-1.2b-smoke and xlstm-350m-smoke again
+   with prompts of 129..200 tokens (prefill pad 256), so that their scans
+   run K5 at the models' chunk of 128: stats and generations equal.  The
+   MoE family: ``moe_ffn`` at qwen3-moe-30b-a3b's widths (d=2048, 128
+   experts top-8) on inputs free of router near ties, card against CPU
+   within 1e-4; granite-moe-3b-a800m-smoke and qwen3-moe-30b-a3b-smoke
+   on the slot backend and on the paged backend with chunked prefill:
+   stats equal, differing generated tokens counted.
 5. The single-engine path: ``repro_torch.launch.serve`` on full
    granite-8b (36 layers, bf16, seeded random weights), paged backend,
    bfio_h8, 4 workers x 8 slots, 32 requests of 16 new tokens.  Launch
    counters are zeroed just before and read just after; K1 and K2 must
-   have run on every decode step.  The engine is freed afterwards.
+   have run on every decode step.  The engine is freed afterwards.  Then
+   the MoE path the same way: full qwen3-moe-30b-a3b (48 layers, d=2048,
+   128 experts top-8, bf16, 30.5 B parameters), with its init seconds,
+   peak device memory and mean decode-step ms; its weights are freed
+   before the next phase.
 6. The fleet path: ``repro_torch.launch.serve`` in fleet mode on full
    granite-8b (one shared copy of the weights), 4 replicas of 4 workers x
    8 slots, ``bfio_h0`` engines behind the ``bfio`` router, 64 requests of
@@ -72,7 +83,9 @@ result line):
    call, K2 on every norm).  Counters zeroed just before and read just
    after each; each engine is freed before the next.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
+The second-to-last line is ``{"kernels": [...]}`` (each kernel's launches
+by path under ``launches_by_path``: engine, moe, fleet and the three slot
+paths); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is disabled for matmuls and
 cuDNN so float32 comparisons are float32.
 """
@@ -900,6 +913,200 @@ def phase_slot_path(arch: str, n_requests: int) -> dict:
     return launches
 
 
+def phase_paged_path(arch: str, what: str) -> dict:
+    """One full-width paged engine path through the launcher: ``arch`` at
+    full depth in bf16 with seeded random weights, ``bfio_h8``, 4 workers
+    x 8 slots, 32 requests of 16 new tokens.  Counters zeroed just before
+    and read just after; K1 and K2 must run on every decode step.  Prints
+    init seconds, the peak device memory from the start of the path, the
+    mean decode-step ms and the launches; frees the engine and its
+    weights before it returns the launch counts."""
+    from repro_torch.launch.serve import build_parser, make_engine, serve
+    args = build_parser().parse_args(
+        ["--arch", arch, "--policy", "bfio_h8", "--cache-backend",
+         "paged", "--workers", "4", "--slots", "8", "--requests", "32",
+         "--max-new", "16", "--seed", "0"])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = make_engine(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    launches = _zero_and_read(None)
+    out = serve(args, eng)
+    launches = _zero_and_read(launches)
+    stats, meas, reqs = out["stats"], out["measured"], out["requests"]
+    cfg = eng.cfg
+    check(all(r.done and not r.failed for r in reqs),
+          f"{what}: not every request finished")
+    check(all(len(r.generated) == args.max_new for r in reqs),
+          f"{what}: a request generated the wrong number of tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs
+              for t in r.generated), f"{what}: token id out of range")
+    n_dec = meas["decoded_steps"]
+    L = cfg.n_layers
+    check(n_dec > 0, f"{what}: no decode step ran")
+    check(launches["rms_norm"] >= (2 * L + 1) * n_dec,
+          f"{what}: rms_norm kernel launched {launches['rms_norm']} "
+          f"times, need >= {(2 * L + 1) * n_dec}")
+    check(launches["paged_decode_attention"] >= L * n_dec,
+          f"{what}: paged attention kernel launched "
+          f"{launches['paged_decode_attention']} times, need >= "
+          f"{L * n_dec}")
+    check(launches["rms_norm"] > 0 and launches["paged_decode_attention"] > 0,
+          f"{what}: a kernel of the path never launched")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moe = (f", {cfg.n_experts} experts top-{cfg.experts_per_token} of "
+           f"width {cfg.moe_d_ff}" if cfg.is_moe else "")
+    print(f"{what}: {cfg.name} ({L} layers, d={cfg.d_model}{moe}, "
+          f"{cfg.dtype}, {cfg.n_params() / 1e9:.2f} B parameters), init "
+          f"{init_s:.2f} s, {weights_gb:.2f} GB on the card after init; "
+          f"{len(reqs)} requests, {stats['tokens']} tokens, {meas['steps']} "
+          f"steps ({n_dec} with decode); launches {launches}")
+    print(f"{what} MEASURED on {meas['device']}: wall "
+          f"{meas['wall_s']:.3f} s, decode step {meas['decode_step_ms']:.2f}"
+          f" ms (mean of {meas['decode_phase_steps']} decode-only steps), "
+          f"{meas['tokens_per_s']:.1f} tok/s, peak memory {peak:.2f} GB")
+    print(f"{what} MODELLED (engine stats, A100 power model): "
+          f"time {stats['time_s']:.4f} s, {stats['throughput_tok_s']:.1f} "
+          f"tok/s, energy {stats['energy_j']:.2f} J, avg imbalance "
+          f"{stats['avg_imbalance']:.2f}")
+    del eng, out, reqs
+    _free()
+    return launches
+
+
+def _moe_inputs(T, S, d, E, f, k, *, seed):
+    """float32 MoE inputs at the given widths (init scales), each token's
+    k-th and (k+1)-th router probabilities at least 1e-5 apart: a token
+    nearer a tie is drawn again, so both devices pick the same experts."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(seed)
+    p = {"router": torch.randn((d, E), generator=g) / d ** 0.5,
+         "w1": torch.randn((E, d, f), generator=g) / d ** 0.5,
+         "w3": torch.randn((E, d, f), generator=g) / d ** 0.5,
+         "w2": torch.randn((E, f, d), generator=g) / f ** 0.5}
+    x = torch.randn((T, S, d), generator=g)
+    for _ in range(20):
+        probs, _, _ = moe.router_topk(x, p["router"], k)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        near = (top[..., k - 1] - top[..., k]) < 1e-5
+        if not near.any():
+            return x, p
+        x[near] = torch.randn((int(near.sum()), d), generator=g)
+    fail("moe_ffn check: could not draw inputs free of top-k near ties")
+
+
+def phase_cross_device_moe(dev):
+    """MoE on the CPU and on the card, float32: ``moe_ffn`` at
+    qwen3-moe-30b-a3b's widths (d=2048, 128 experts top-8 of width 768)
+    at a decode shape (32 rows) and a prefill shape (4 x 64) within 1e-4;
+    then granite-moe-3b-a800m and qwen3-moe-30b-a3b in their smoke sizes
+    served on the slot backend and on the paged backend with chunked
+    prefill, with the same weights and stream.  Engine stats must be
+    equal; generations are counted, not held (expert capacity couples a
+    batch's rows, so a router near tie can move a token's experts)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_policy
+    from repro_torch.launch.serve import submit_requests
+    from repro_torch.models import init_params, moe
+    from repro_torch.serving import EngineConfig, ServingEngine
+    ffn = []
+    for T, S, seed in ((32, 1, 41), (4, 64, 42)):
+        x, p = _moe_inputs(T, S, 2048, 128, 768, 8, seed=seed)
+        want, _ = moe.moe_ffn(x, p, n_experts=128, k=8)
+        got, _ = moe.moe_ffn(x.to(dev), _tree_to(p, dev), n_experts=128,
+                             k=8)
+        err = compare(f"moe_ffn ({T}, {S}) card against CPU", got.cpu(),
+                      want, dict(atol=1e-4, rtol=1e-4))
+        ffn.append((f"({T}, {S}, 2048)", err))
+        del x, p, want, got
+    engines = []
+    for arch in ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        p_cpu = init_params(cfg, 0, device="cpu")
+        p_dev = _tree_to(p_cpu, dev)
+        for backend, kw in (("slot", {}), ("paged", {"prefill_chunk": 32})):
+            ec = EngineConfig(n_workers=2, slots_per_worker=4,
+                              max_seq_len=256, cache_backend=backend, **kw)
+            runs = []
+            for params, d in ((p_cpu, "cpu"), (p_dev, dev)):
+                eng = ServingEngine(cfg, params, ec, make_policy("bfio_h8"),
+                                    device=d)
+                reqs = submit_requests(eng, 12, 8, seed=5)
+                stats = eng.run()
+                runs.append((stats, [r.generated for r in reqs]))
+            what = f"{cfg.name} {backend}" + (" chunked" if kw else "")
+            check(runs[0][0] == runs[1][0],
+                  f"cross-device moe {what}: engine stats differ "
+                  f"{runs[0][0]} vs {runs[1][0]}")
+            differ = sum(a != b for ga, gb in zip(runs[0][1], runs[1][1])
+                         for a, b in zip(ga, gb))
+            engines.append((what, runs[1][0]["tokens"], differ))
+    return ffn, engines
+
+
+def _long_prompts(vocab_size: int, n: int, max_new: int, seed: int) -> list:
+    """Prompts of 129..200 tokens: a prefill pad of 256, where the models'
+    scans run at their chunk of 128."""
+    from repro_torch.serving import ServeRequest
+    rng = np.random.default_rng(seed)
+    return [ServeRequest(rid=i, tokens=rng.integers(
+        1, vocab_size, size=int(rng.integers(129, 201))),
+        max_new_tokens=max_new) for i in range(n)]
+
+
+def phase_cross_device_long_prompts(dev):
+    """zamba2-1.2b and xlstm-350m (smoke sizes, float32) on the slot
+    backend with prompts over 128 tokens (``prefill_pad`` 256,
+    ``max_seq_len`` 256), on the CPU and on the card: stats and
+    generations equal, and the card's scans ran at chunk 128."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_policy
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    chunks = []
+    inner = ops._ssm_chunk_scan
+
+    def recorded(q, *a, chunk, **kw):
+        if q.is_cuda:
+            chunks.append(chunk)
+        return inner(q, *a, chunk=chunk, **kw)
+    out = []
+    for arch in ("zamba2-1.2b", "xlstm-350m"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        p_cpu = init_params(cfg, 0, device="cpu")
+        p_dev = _tree_to(p_cpu, dev)
+        ec = EngineConfig(n_workers=2, slots_per_worker=4, max_seq_len=256,
+                          prefill_pad=256, cache_backend="slot")
+        runs = []
+        for params, d in ((p_cpu, "cpu"), (p_dev, dev)):
+            eng = ServingEngine(cfg, params, ec, make_policy("bfio_h8"),
+                                device=d)
+            reqs = _long_prompts(cfg.vocab_size, 12, 8, seed=6)
+            for r in reqs:
+                eng.submit(r)
+            del chunks[:]
+            ops._ssm_chunk_scan = recorded
+            try:
+                stats = eng.run()
+            finally:
+                ops._ssm_chunk_scan = inner
+            runs.append((stats, [r.generated for r in reqs]))
+        check(runs[0][0] == runs[1][0],
+              f"cross-device long prompts {cfg.name}: engine stats differ "
+              f"{runs[0][0]} vs {runs[1][0]}")
+        check(runs[0][1] == runs[1][1],
+              f"cross-device long prompts {cfg.name}: generations on the "
+              f"card differ from the CPU plain path")
+        check(128 in chunks, f"cross-device long prompts {cfg.name}: no "
+              f"scan ran at chunk 128 on the card (chunks {sorted(set(chunks))})")
+        out.append((cfg.name, runs[1][0]["tokens"], len(chunks)))
+    return out
+
+
 def _free() -> None:
     """Release a finished path's device memory: the wrapped ``decode``
     methods of the fleet's counting hook form reference cycles, so
@@ -991,58 +1198,25 @@ def main() -> None:
     for what, toks in phase_cross_device_slot(dev):
         print(f"cross-device slot: {what} f32, {toks} tokens, stats and "
               f"generations equal on cpu and the card")
+    for name, toks, n_scan in phase_cross_device_long_prompts(dev):
+        print(f"cross-device long prompts: {name} f32 on the slot backend, "
+              f"prompts of 129..200 tokens at prefill pad 256, {toks} "
+              f"tokens, {n_scan} scans on the card at chunk 128; stats and "
+              f"generations equal on cpu and the card")
+    ffn, engines = phase_cross_device_moe(dev)
+    for shape, err in ffn:
+        print(f"cross-device moe: moe_ffn {shape} f32 at qwen3-moe-30b-a3b's "
+              f"widths, card against cpu max abs err {err:.3e} (<= 1e-4)")
+    for what, toks, differ in engines:
+        print(f"cross-device moe: {what} f32, {toks} tokens, stats equal on "
+              f"cpu and the card; {differ} generated tokens differ")
 
-    from repro_torch.launch.serve import build_parser, make_engine, serve
-    args = build_parser().parse_args(
-        ["--arch", "granite-8b", "--policy", "bfio_h8", "--cache-backend",
-         "paged", "--workers", "4", "--slots", "8", "--requests", "32",
-         "--max-new", "16", "--seed", "0"])
-    t0 = time.perf_counter()
-    eng = make_engine(args)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    launches = _zero_and_read(None)
-    out = serve(args, eng)
-    launches = _zero_and_read(launches)
-    stats, meas, reqs = out["stats"], out["measured"], out["requests"]
-    check(all(r.done and not r.failed for r in reqs),
-          "main path: not every request finished")
-    check(all(len(r.generated) == args.max_new for r in reqs),
-          "main path: a request generated the wrong number of tokens")
-    check(all(0 <= t < eng.cfg.vocab_size for r in reqs
-              for t in r.generated), "main path: token id out of range")
-    n_dec = meas["decoded_steps"]
-    L = eng.cfg.n_layers
-    check(n_dec > 0, "main path: no decode step ran")
-    check(launches["rms_norm"] >= (2 * L + 1) * n_dec,
-          f"main path: rms_norm kernel launched {launches['rms_norm']} "
-          f"times, need >= {(2 * L + 1) * n_dec}")
-    check(launches["paged_decode_attention"] >= L * n_dec,
-          f"main path: paged attention kernel launched "
-          f"{launches['paged_decode_attention']} times, need >= "
-          f"{L * n_dec}")
-    check(launches["rms_norm"] > 0 and launches["paged_decode_attention"] > 0,
-          "main path: a kernel of the path never launched")
-    print(f"main path: {eng.cfg.name} ({L} layers, d={eng.cfg.d_model}, "
-          f"{eng.cfg.dtype}), init {init_s:.2f} s; {len(reqs)} requests, "
-          f"{stats['tokens']} tokens, {meas['steps']} steps "
-          f"({n_dec} with decode); launches {launches}")
-    print(f"main path MEASURED on {meas['device']}: wall "
-          f"{meas['wall_s']:.3f} s, decode step {meas['decode_step_ms']:.2f}"
-          f" ms (mean of {meas['decode_phase_steps']} decode-only steps), "
-          f"{meas['tokens_per_s']:.1f} tok/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    print(f"main path MODELLED (engine stats, A100 power model): "
-          f"time {stats['time_s']:.4f} s, {stats['throughput_tok_s']:.1f} "
-          f"tok/s, energy {stats['energy_j']:.2f} J, avg imbalance "
-          f"{stats['avg_imbalance']:.2f}")
-
-    del eng, out, reqs
-    torch.cuda.empty_cache()
-    paths = {"engine": launches, "fleet": phase_fleet_path(),
-             "slot_granite": phase_slot_path("granite-8b", 32),
-             "slot_zamba2": phase_slot_path("zamba2-1.2b", 32),
-             "slot_xlstm": phase_slot_path("xlstm-350m", 8)}
+    paths = {"engine": phase_paged_path("granite-8b", "main path")}
+    paths["moe"] = phase_paged_path("qwen3-moe-30b-a3b", "moe path")
+    paths.update({"fleet": phase_fleet_path(),
+                  "slot_granite": phase_slot_path("granite-8b", 32),
+                  "slot_zamba2": phase_slot_path("zamba2-1.2b", 32),
+                  "slot_xlstm": phase_slot_path("xlstm-350m", 8)})
 
     rows = []
     for k in kernels:

@@ -1,8 +1,9 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>
 --policy bfio_h8 [--cache-backend slot|paged]`` — drives the BF-IO-routed
 multi-worker engine end to end on one card.  The slot backend (the
-default) serves the dense, ssm (xlstm-350m) and hybrid (zamba2-1.2b)
-families; the paged backend serves the dense family.
+default) serves the dense, moe (qwen3-moe-30b-a3b, granite-moe-3b-a800m),
+ssm (xlstm-350m) and hybrid (zamba2-1.2b) families; the paged backend
+serves the dense and moe families.
 
 Without ``--smoke`` the full configuration runs in its own dtype (bf16)
 on ``cuda``; ``--smoke`` takes the reduced same-family variant, and

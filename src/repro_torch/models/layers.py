@@ -42,7 +42,7 @@ def dense_init(shape, *, generator: torch.Generator, device,
         scale = 1.0 / np.sqrt(fan_in)
     v = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (v * scale).to(dtype)
+    return v.mul_(scale).to(dtype)
 
 
 def embed_init(vocab: int, d: int, *, generator: torch.Generator, device,

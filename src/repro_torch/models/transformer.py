@@ -1,15 +1,16 @@
 """Model assembly: parameter init, prefill, decode, chunked prefill and
-paged decode for the dense decoder and the recurrent families (ssm:
-xLSTM's mLSTM/sLSTM stack; hybrid: Zamba2's Mamba2 stack with one shared
-attention block).
+paged decode for the dense decoder, the MoE decoder (the dense stack with
+a top-k routed expert FFN, :mod:`repro_torch.models.moe`) and the
+recurrent families (ssm: xLSTM's mLSTM/sLSTM stack; hybrid: Zamba2's
+Mamba2 stack with one shared attention block).
 
 Parameters keep the reference's stacked per-group layout: each group of
 :func:`layer_pattern` holds its blocks' weights on a leading axis and the
 layer loop slices it (the reference scans it); zamba2's shared attention
 block is one unstacked ``params["shared_attn"]`` applied after every group
 of Mamba2 blocks, each application with its own cache (``shared0`` ...).
-The moe, vlm and audio families raise ``NotImplementedError`` naming
-their ROADMAP item.
+The vlm and audio families raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 Every block hands its residual branch's output to the next norm instead
 of adding it itself: a block takes ``(x, r)`` and returns ``(x', r')``,
@@ -49,15 +50,15 @@ from .layers import (
     rms_norm,
     swiglu,
 )
+from .moe import moe_ffn
 
 __all__ = ["init_params", "init_cache", "layer_pattern",
            "supports_paged_stack", "prefill_fn", "decode_fn",
            "chunk_prefill_fn", "paged_decode_fn", "paged_chunk_prefill_fn",
            "resolve_device", "torch_dtype"]
 
-_PORTED = ("dense", "ssm", "hybrid")
+_PORTED = ("dense", "moe", "ssm", "hybrid")
 _TODO = {
-    "moe": "ROADMAP Queue A item 10 (remaining model families: MoE)",
     "vlm": "ROADMAP Queue A item 10 (remaining model families: vlm)",
     "audio": "ROADMAP Queue A item 10 (remaining model families: audio)",
 }
@@ -95,7 +96,7 @@ def _require_ported(cfg: ModelConfig, what: str) -> None:
 def layer_pattern(cfg: ModelConfig) -> list[tuple[str, str, int]]:
     """The decoder stack as homogeneous groups (group, kind, n_blocks)."""
     _require_ported(cfg, "layer_pattern")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return [("blocks", "attn", cfg.n_layers)]
     if cfg.family == "ssm":
         # xLSTM [7:1]: every cfg.slstm_every-th block is sLSTM
@@ -163,12 +164,30 @@ def _attn_block_init(cfg: ModelConfig, n: int, kw) -> dict:
         attn["bq"] = torch.zeros((n, hq, hd), dtype=dtype, device=dev)
         attn["bk"] = torch.zeros((n, hkv, hd), dtype=dtype, device=dev)
         attn["bv"] = torch.zeros((n, hkv, hd), dtype=dtype, device=dev)
-    ffn = {"w_in": _stacked(n, (d, f), **kw),
-           "w_out": _stacked(n, (f, d), **kw)}
-    if cfg.mlp_variant == "swiglu":
-        ffn["w_gate"] = _stacked(n, (d, f), **kw)
+    if cfg.is_moe:
+        ffn = _moe_init(cfg, n, kw)
+    else:
+        ffn = {"w_in": _stacked(n, (d, f), **kw),
+               "w_out": _stacked(n, (f, d), **kw)}
+        if cfg.mlp_variant == "swiglu":
+            ffn["w_gate"] = _stacked(n, (d, f), **kw)
     return {"norm1": _ones(n, d, dev), "attn": attn,
             "norm2": _ones(n, d, dev), "ffn": ffn}
+
+
+def _moe_init(cfg: ModelConfig, n: int, kw) -> dict:
+    """The reference's expert FFN tree: a float32 router (d, E) and the
+    experts' SwiGLU weights w1/w3 (E, d, f) and w2 (E, f, d), w2 at scale
+    1/sqrt(f).  Each leaf is allocated once and filled a layer at a time:
+    a full-size stacked expert leaf is 19.3 GB in bf16 for
+    qwen3-moe-30b-a3b, and no second copy of it fits the card."""
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    return {
+        "router": _stacked(n, (d, E), **{**kw, "dtype": torch.float32}),
+        "w1": _stacked(n, (E, d, f), **kw),
+        "w3": _stacked(n, (E, d, f), **kw),
+        "w2": _stacked(n, (E, f, d), scale=1.0 / np.sqrt(f), **kw),
+    }
 
 
 def _mamba_block_init(cfg: ModelConfig, n: int, kw) -> dict:
@@ -314,6 +333,14 @@ def _slice(tree, i: int):
 
 
 def _mlp_forward(cfg: ModelConfig, p, x):
+    """The block's FFN: the routed experts for an MoE model (its
+    load-balance loss is not needed here and not computed), else the dense
+    MLP."""
+    if cfg.is_moe:
+        return moe_ffn(x, p, n_experts=cfg.n_experts,
+                       k=cfg.experts_per_token,
+                       capacity_factor=cfg.capacity_factor,
+                       aux_loss=False)[0]
     if cfg.mlp_variant == "swiglu":
         return swiglu(x, p["w_in"], p["w_gate"], p["w_out"])
     return linear(F.gelu(linear(x, p["w_in"]), approximate="tanh"),
@@ -619,7 +646,8 @@ def decode_fn(cfg: ModelConfig, params, cache, tokens):
 def supports_paged_stack(cfg: ModelConfig) -> bool:
     """True iff the decoder is a single homogeneous attention stack whose
     KV cache is pure (k, v) pairs (reference semantics: dense/moe/vlm
-    without a sliding window).  Of these the port runs dense so far."""
+    without a sliding window).  Of these the port runs dense and moe so
+    far; vlm raises naming its ROADMAP item."""
     return (cfg.family in ("dense", "moe", "vlm")
             and not cfg.sliding_window)
 

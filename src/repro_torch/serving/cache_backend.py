@@ -13,7 +13,7 @@ Two implementations, selected by ``EngineConfig.cache_backend``:
   one flat ``init_cache`` tree over all ``G * B`` slots, compact decode by
   gather/scatter of whole cache rows.  Simple, but reserves
   ``max_seq_len`` KV per slot forever and copies full rows to compact.
-  It serves every ported family (dense, ssm, hybrid); its decode runs
+  It serves every ported family (dense, moe, ssm, hybrid); its decode runs
   :func:`repro_torch.models.decode_fn`, whose attention is the Hopper
   contiguous decode-attention kernel and whose Mamba2/mLSTM prefill scan
   is the chunked-scan kernel on the card.

@@ -7,8 +7,9 @@ modelled, so ``stats()``, every telemetry step and request row, every
 generation, the straggler ledger and the span trace are equal when the
 scheduling is — under every router family (round_robin, least_loaded,
 pod2, bfio, bfio_h2, pod_bfio_p2, bfio_affinity), in both fleet modes,
-on six scenarios; for the async fleet under both autoscalers, with
-drain handoffs.  The reference's ref and vec fleet modes are themselves
+on six scenarios, on the paged backend; on the slot backend with tiny
+dense and tiny ssm replicas; for the async fleet under both autoscalers,
+with drain handoffs.  The reference's ref and vec fleet modes are themselves
 bit-identical (its own gate), so each reference run is made once and
 held against both of the port's modes.  The host-side numpy modules
 (ledger arithmetic, scenarios and traces) are held seed for seed, and
@@ -57,6 +58,9 @@ from repro_torch.serving import EngineConfig, ServingEngine
 TINY = dict(name="tiny", family="dense", n_layers=1, d_model=32, n_heads=2,
             n_kv_heads=2, d_ff=64, vocab_size=128, dtype="float32")
 CFG = ModelConfig(**TINY)
+TINY_SSM = dict(name="tiny-ssm", family="ssm", n_layers=2, d_model=64,
+                n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,
+                ssm_state=16, dtype="float32")
 R = 4
 EC = dict(n_workers=2, slots_per_worker=2, max_seq_len=64,
           cache_backend="paged", step_overhead=1e-3, t_token=2e-4)
@@ -88,13 +92,22 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def weights():
-    rcfg = RefModelConfig(**TINY)
+def _bridged(fields):
+    rcfg = RefModelConfig(**fields)
     rparams, _ = split_params(ref_init_params(rcfg, jax.random.PRNGKey(0)))
     tparams = params_from_numpy(jax.tree.map(np.asarray, rparams),
                                 device="cpu")
     return rcfg, rparams, tparams, make_cpu_mesh()
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _bridged(TINY)
+
+
+@pytest.fixture(scope="module")
+def ssm_weights():
+    return _bridged(TINY_SSM)
 
 
 def _scenario(make, name, ec_kw=EC):
@@ -120,9 +133,10 @@ def _outcome(fleet, tel, rec=None) -> dict:
 
 
 def _run(side, weights, router, scenario, *, fleet_mode="vec",
-         ec_kw=None, fleet_cls=None, trace=False, **kw):
+         ec_kw=None, fleet_cls=None, trace=False, tcfg=CFG, **kw):
     """One fleet run on one side ("ref" or "port"); returns everything
-    that is compared."""
+    that is compared.  ``tcfg`` is the port's config of the weights'
+    model."""
     rcfg, rparams, tparams, mesh = weights
     ec_kw = {**EC, **(ec_kw or {})}
     if side == "ref":
@@ -138,7 +152,7 @@ def _run(side, weights, router, scenario, *, fleet_mode="vec",
     else:
         tel, rec = FleetTelemetry(), SpanRecorder() if trace else None
         cls = AsyncFleetServer if fleet_cls == "async" else FleetServer
-        fleet = cls(CFG, tparams, EngineConfig(**ec_kw), n_replicas=R,
+        fleet = cls(tcfg, tparams, EngineConfig(**ec_kw), n_replicas=R,
                     router=router, policy="bfio_h0", device="cpu",
                     telemetry=tel, fleet_mode=fleet_mode, obs=rec, **kw)
         fleet.submit_scenario(_scenario(make_scenario, scenario, ec_kw))
@@ -173,6 +187,30 @@ def test_fleet_matches_reference(weights, router, scenario, fleet_mode):
                ec_kw=SCENARIO_EC.get(scenario))
     _assert_equal(got, want)
     assert got["stats"]["completed"] == SCENARIO_RUNS[scenario][
+        "n_requests"]
+
+
+_SLOT_REF: dict = {}
+
+
+@pytest.mark.parametrize("fleet_mode", ["vec", "ref"])
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_slot_backend_fleet_matches_reference(weights, ssm_weights, family,
+                                              fleet_mode):
+    """Barrier fleets on the contiguous slot backend (the reference's
+    default), of tiny dense and tiny ssm replicas, in both of the port's
+    fleet modes against one reference run each (its ref and vec modes are
+    bit-identical).  The seeds' greedy decodes are free of near ties."""
+    w, tcfg = ((weights, CFG) if family == "dense"
+               else (ssm_weights, ModelConfig(**TINY_SSM)))
+    ec_kw = {"cache_backend": "slot"}
+    if family not in _SLOT_REF:
+        _SLOT_REF[family] = _run("ref", w, "bfio", "flash_crowd",
+                                 ec_kw=ec_kw)
+    got = _run("port", w, "bfio", "flash_crowd", fleet_mode=fleet_mode,
+               ec_kw=ec_kw, tcfg=tcfg)
+    _assert_equal(got, _SLOT_REF[family])
+    assert got["stats"]["completed"] == SCENARIO_RUNS["flash_crowd"][
         "n_requests"]
 
 

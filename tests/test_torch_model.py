@@ -306,13 +306,14 @@ def test_init_cache_shape(models):
         tcfg.n_layers, 2, MAX_LEN, tcfg.n_kv_heads, tcfg.hd)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "xlstm-350m",
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "xlstm-350m",
                                   "zamba2-1.2b", "whisper-tiny"])
 def test_unported_families_raise(arch):
-    """MoE and audio are not ported and raise naming their ROADMAP item.
-    The ssm and hybrid families are ported with the slot backend (held
-    against the reference in tests/test_torch_ssm.py) and keep the
-    reference's limit: no chunked or paged path."""
+    """vlm and audio are not ported and raise naming their ROADMAP item
+    (MoE is ported: tests/test_torch_moe.py).  The ssm and hybrid families
+    are ported with the slot backend (held against the reference in
+    tests/test_torch_ssm.py) and keep the reference's limit: no chunked or
+    paged path."""
     cfg = get_smoke_config(arch)
     if cfg.family in ("ssm", "hybrid"):
         params = init_params(cfg, 0, device="cpu")

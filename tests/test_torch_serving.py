@@ -216,13 +216,14 @@ def test_allocator_and_prefix_index_sequences_equal(evict):
 
 def test_unported_paths_raise(weights):
     """The slot backend is ported (tests/test_torch_slot.py); an unported
-    family on it, and the per-slot ``engine_mode="ref"``, still raise
-    naming their ROADMAP item."""
+    family on it (vlm; MoE is ported, tests/test_torch_moe.py), and the
+    per-slot ``engine_mode="ref"``, still raise naming their ROADMAP
+    item."""
     _, _, tparams, _ = weights
-    moe = ModelConfig(**dict(TINY, name="tiny-moe", family="moe",
-                             n_experts=4, experts_per_token=2, moe_d_ff=64))
+    vlm = ModelConfig(**dict(TINY, name="tiny-vlm", family="vlm",
+                             patch_tokens=4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_cache_backend("slot", moe, tparams,
+        make_cache_backend("slot", vlm, tparams,
                            EngineConfig(cache_backend="slot"), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(CFG, tparams, EngineConfig(engine_mode="ref",

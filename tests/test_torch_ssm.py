@@ -238,6 +238,6 @@ def test_init_cache_layout(model):
 
 def test_unported_families_raise():
     from repro_torch.configs import get_smoke_config as smoke
-    for arch in ("qwen3-moe-30b-a3b", "whisper-tiny"):
+    for arch in ("llava-next-mistral-7b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             layer_pattern(smoke(arch))
