@@ -36,10 +36,13 @@ result line):
    its plain version at 1e-3 (y and the final state); each case also
    times its scores pass alone and prints its share of the bound.  The
    BF-IO swap-search kernel (K4) at the fleet router's shape (C=1, G=4,
-   N=64, W=1, integer loads) and at pod scale (C=8, G=32, N=512, W=9,
-   random floats, ragged ``valid``, ``assign`` with -1s), held against its
-   plain version bit for bit (``best_val`` everywhere, ``best_j`` on
-   finite rows).  Each is timed with CUDA events beside its bound, its
+   N=64, W=1, integer loads), at pod scale (C=8, G=32, N=512, W=9,
+   random floats, ragged ``valid``, ``assign`` with -1s) and at
+   ``pod_bfio_p2``'s two pods of two workers with tied loads, held
+   against its plain version and its dense oracle bit for bit
+   (``best_val`` everywhere, ``best_j`` on finite rows, 0 on the
+   others), with the profiler showing one device kernel a call.  Each is
+   timed with CUDA events beside its bound, its
    plain version and, where one exists, a one-call PyTorch yardstick the
    port never calls.
 4. Cross-device checks on a small input: float32 smoke configs served on
@@ -368,11 +371,13 @@ def phase_paged_attention(dev, flush):
                 cases=[{k: c[k] for k in _CASE_KEYS} for c in cases[1:]])
 
 
-def _swap_inputs(dev, C, G, N, W, *, seed, n_valid=None):
+def _swap_inputs(dev, C, G, N, W, *, seed, n_valid=None, ties=False):
     """Swap-search inputs.  With ``n_valid`` the router's shape: integer
     loads and prefill sizes, the first ``n_valid`` rows of the padded
     bucket valid and assigned; without, random floats with ragged
-    ``valid`` and ``assign`` holding -1s (the reference's fixtures)."""
+    ``valid`` and ``assign`` holding -1s (the reference's fixtures); with
+    ``ties``, loads and sizes drawn from {0, 1, 2}, so that loads tie
+    exactly within a window slot."""
     rng = np.random.default_rng(seed)
     if n_valid is not None:
         loads = rng.integers(0, 2048, (C, G, W)).astype(np.float32)
@@ -385,28 +390,58 @@ def _swap_inputs(dev, C, G, N, W, *, seed, n_valid=None):
         cands = rng.uniform(0, 5, (C, N, W)).astype(np.float32)
         assign = rng.integers(-1, G, (C, N))
         valid = rng.random((C, N)) > 0.1
+    if ties:
+        loads = rng.integers(0, 3, (C, G, W)).astype(np.float32)
+        cands = rng.integers(0, 3, (C, N, W)).astype(np.float32)
     return (torch.from_numpy(loads).to(dev), torch.from_numpy(cands).to(dev),
             torch.from_numpy(assign.astype(np.int32)).to(dev),
             torch.from_numpy(valid).to(dev))
 
 
+def _device_kernels(fn) -> list[str]:
+    """The device kernels that one call of ``fn`` runs, by the profiler.
+    A trace with no device activity at all is the profiler's miss (it has
+    come back empty for a call of a few microseconds), not a count: such a
+    trace is taken again, three times at most."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ran = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ran:
+            break
+    return ran
+
+
 def _swap_case(dev, C, G, N, W, **kw):
+    """K4 on one case: bit-identical to the plain version and the dense
+    oracle, one device kernel a call, timed beside its bound and the plain
+    version."""
     from repro_torch.kernels import bfio_swap as bs
     args = _swap_inputs(dev, C, G, N, W, **kw)
+    what = f"bfio_swap C={C} G={G} N={N} W={W}"
     vk, ak = bs.swap_best(*args)
     vp, ap = bs.swap_best_plain(*args)
+    vd, ad = bs.swap_best_dense(*args)
     torch.cuda.synchronize()
     fin = torch.isfinite(vp)
-    check(torch.equal(vk, vp), f"bfio_swap C={C} N={N} W={W}: best_val "
-          f"differs from the plain version (max abs err "
-          f"{(vk - vp).abs().nan_to_num().max().item():.3e})")
-    check(torch.equal(ak[fin], ap[fin]),
-          f"bfio_swap C={C} N={N} W={W}: best_j differs on finite rows")
-    check(bool(fin.any().item()), f"bfio_swap C={C}: no feasible pair")
-    prepped = bs.swap_prep(*args)
+    for name, v, a in (("plain version", vp, ap), ("dense oracle", vd, ad)):
+        check(torch.equal(vk, v), f"{what}: best_val differs from the "
+              f"{name} (max abs err "
+              f"{(vk - v).abs().nan_to_num().max().item():.3e})")
+        check(torch.equal(ak[fin], a[fin]),
+              f"{what}: best_j differs from the {name} on finite rows")
+    check(bool((ak[~fin] == 0).all().item()),
+          f"{what}: an infeasible row's best_j is not 0")
+    check(bool(fin.any().item()), f"{what}: no feasible pair")
+    ran = _device_kernels(lambda: bs.swap_best(*args))
+    check(len(ran) == 1 and "swap_best" in ran[0],
+          f"{what}: one call ran {ran}, not the one swap kernel")
     loads, cands, assign, valid = args
     ms = time_ms(lambda: bs.swap_best(*args))
-    kernel_ms = time_ms(lambda: bs._launch(*prepped, cands, G))
     plain_ms = time_ms(lambda: bs.swap_best_plain(*args))
     # bound: each input read once, each output written once; operations
     # are 6 float32 ops (sub, add, sub, max, max, add) per window slot of
@@ -417,32 +452,38 @@ def _swap_case(dev, C, G, N, W, **kw):
                  & (ga[:, :, None] != ga[:, None, :])).sum().item())
     nbytes = 4 * C * G * W + 4 * C * N * W + 5 * C * N + 8 * C * N
     b_ms, b_by = bound(nbytes, 6.0 * pairs * W)
-    return dict(max_abs_err=0.0, ms=ms, kernel_only_ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, feasible_pairs=pairs,
-                shape=f"C={C} G={G} N={N} W={W}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, feasible_pairs=pairs,
+                shape=f"C={C} G={G} N={N} W={W}"
+                      + (", loads in {0, 1, 2}" if kw.get("ties") else ""))
+
+
+_SWAP_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+              "feasible_pairs")
 
 
 def phase_bfio_swap(dev):
     """K4 at the fleet router's shape (its power-of-two bucket of 64
-    candidates, 24 real) and at pod scale; bit-identical to plain."""
+    candidates, 24 real), at pod scale, and at two pods of two workers
+    with tied loads; bit-identical to plain and dense, one kernel a
+    call."""
     fleet = _swap_case(dev, 1, 4, 64, 1, seed=11, n_valid=24)
     pod = _swap_case(dev, 8, 32, 512, 9, seed=12)
-    for k in (fleet, pod):
-        print(f"kernel bfio_swap [{k['shape']}]: {k['ms'] * 1e3:.2f} us "
-              f"(kernel alone {k['kernel_only_ms'] * 1e3:.2f} us; bound "
-              f"{k['bound_ms'] * 1e3:.3f} us by {k['bound_by']}, "
-              f"{k['feasible_pairs']} feasible pairs), plain "
-              f"{k['plain_ms'] * 1e3:.2f} us, library none, bit-identical")
+    ties = _swap_case(dev, 2, 2, 64, 3, seed=13, ties=True)
+    for k in (fleet, pod, ties):
+        print(f"kernel bfio_swap [{k['shape']}]: {k['ms'] * 1e3:.2f} us, "
+              f"one device kernel a call (bound {k['bound_ms'] * 1e3:.3f} us "
+              f"by {k['bound_by']}, {k['feasible_pairs']} feasible pairs), "
+              f"plain {k['plain_ms'] * 1e3:.2f} us, library none, "
+              f"bit-identical to plain and dense")
     return dict(name="bfio_swap", route="cuda",
                 source="src/repro_torch/kernels/csrc/bfio_swap.cu",
                 replaces="src/repro/kernels/bfio_swap.py:126",
                 **{k: fleet[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "shape", "kernel_only_ms")},
-                at_pod_scale={k: pod[k] for k in (
-                    "shape", "ms", "kernel_only_ms", "plain_ms",
-                    "bound_ms", "bound_by")})
+                    "library_ms", "shape")},
+                at_pod_scale={k: pod[k] for k in _SWAP_KEYS},
+                cases=[{k: ties[k] for k in _SWAP_KEYS}])
 
 
 def phase_cross_device(dev):
@@ -1185,7 +1226,7 @@ def main() -> None:
                         timing_floor_ms=floor_ms))
     del flush
 
-    kernels.append(phase_bfio_swap(dev))
+    kernels.append(dict(phase_bfio_swap(dev), timing_floor_ms=floor_ms))
 
     toks = phase_cross_device(dev)
     print(f"cross-device: granite-8b-smoke f32, {toks} tokens, stats and "

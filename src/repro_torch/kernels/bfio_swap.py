@@ -20,12 +20,14 @@ router, and ``pod_bfio`` with C = pods) runs on the kernel; the reference
 kernel was never batched.
 
 * :func:`swap_best` — the wrapper: on a CPU tensor it runs
-  :func:`swap_best_plain`; on a CUDA tensor it launches the hand-written
-  kernel ``csrc/bfio_swap.cu`` (grid (ceil(N/32), C), eight j-lanes per
-  row, j tiles staged in shared memory, each lane's running argmin in
-  registers, merged to the first minimizer) or raises.
-  ``swap_best.launches`` counts launches.  The kernel is bound by its
-  launch at the router's shapes (C=1, N=64, W=1).
+  :func:`swap_best_plain`; on a CUDA tensor it makes one launch of the
+  hand-written kernel ``csrc/bfio_swap.cu`` on the raw inputs, with no
+  PyTorch op before it (the kernel computes :func:`swap_prep`'s prepass
+  itself; one warp per row, j tiles staged in shared memory with
+  ``cp.async``, each lane's running argmin merged to the first minimizer
+  by warp shuffles), or raises.  ``swap_best.launches`` counts launches.
+  The kernel is bound by its launch at the router's shapes (C=1, N=64,
+  W=1).
 * :func:`swap_best_plain` — the plain PyTorch version, tiled over row
   blocks with the full j extent per block: the counterpart of the
   reference's ``swap_best_xla``.
@@ -162,17 +164,18 @@ def _lib():
     lib = load("bfio_swap.cu")
     fn = lib.swap_best_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
         fn.restype = ctypes.c_int
+        lib.swap_best_max_w.argtypes = [ctypes.c_int]
         lib.swap_best_max_w.restype = ctypes.c_int
     return lib
 
 
 def swap_best(loads, cands, assign, valid):
     """The kernel wrapper.  loads (G, W) / cands (N, W) float32, assign
-    (N,) int32 (-1 = not admitted), valid (N,) bool — each optionally with
-    a leading cluster axis C.  Returns (best_val f32, best_j i32) of shape
-    (N,) or (C, N)."""
+    (N,) int32 or int64 (-1 = not admitted), valid (N,) bool — each
+    optionally with a leading cluster axis C.  Returns (best_val f32,
+    best_j i32) of shape (N,) or (C, N)."""
     if loads.device.type == "cpu":
         return swap_best_plain(loads, cands, assign, valid)
     if loads.device.type != "cuda":
@@ -196,29 +199,25 @@ def swap_best(loads, cands, assign, valid):
         raise TypeError(f"swap_best kernel takes float32 cands, int assign "
                         f"and bool valid, got {cands.dtype}, "
                         f"{assign.dtype}, {valid.dtype}")
-    return _launch(*swap_prep(loads, cands, assign, valid), cands, G,
-                   squeeze=squeeze)
-
-
-def _launch(lo, ga, adm, vtop, ttop, cands, G, *, squeeze=False):
-    """Launch the kernel on prepped, batched inputs (``swap_prep``'s
-    outputs and ``cands``, all on one CUDA device; G workers)."""
+    # one launch: the solver's tensors are float32 and contiguous, so no
+    # op runs before the kernel; other loads are converted and strided
+    # inputs copied
     lib = _lib()
-    C, N, W = cands.shape
-    if W > lib.swap_best_max_w():
+    max_w = lib.swap_best_max_w(G)
+    if W > max_w:
         raise ValueError(f"swap_best kernel: window W={W} exceeds the "
-                         f"{lib.swap_best_max_w()} its shared memory holds")
-    lo, ga, vtop, ttop, cands = (x.contiguous()
-                                 for x in (lo, ga, vtop, ttop, cands))
-    adm = adm.contiguous().view(torch.uint8)
+                         f"{max_w} its shared memory holds at G={G}")
+    if loads.dtype != torch.float32:
+        loads = loads.float()
+    loads, cands, assign, valid = (x.contiguous()
+                                   for x in (loads, cands, assign, valid))
     best_val = torch.empty((C, N), dtype=torch.float32, device=cands.device)
     best_j = torch.empty((C, N), dtype=torch.int32, device=cands.device)
     if C and N:
         rc = lib.swap_best_launch(
-            C, N, G, W,
-            cands.data_ptr(), lo.data_ptr(), ga.data_ptr(), adm.data_ptr(),
-            vtop.data_ptr(), ttop.data_ptr(), best_val.data_ptr(),
-            best_j.data_ptr(),
+            C, N, G, W, int(assign.dtype == torch.int64),
+            loads.data_ptr(), cands.data_ptr(), assign.data_ptr(),
+            valid.data_ptr(), best_val.data_ptr(), best_j.data_ptr(),
             torch.cuda.current_stream(cands.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"swap_best kernel launch failed: CUDA error "

@@ -37,6 +37,14 @@ from repro_torch.kernels import bfio_swap as bs
 
 # the reference's kernel fixtures: (G, N, W, tile)
 SWAP_FIXTURES = [(2, 5, 1, 4), (4, 33, 3, 8), (8, 64, 9, 16), (3, 17, 2, 32)]
+# the prepass's edge cases, (G, N, W, tile, kind): one, two and three
+# workers (argsort's positions clamped to row G-1), exact ties, all-zero
+# loads with -0.0, the pod router's padding rows of load 1e30, int64
+# assign, and rows with no feasible pair (every admitted row on one worker)
+SWAP_EDGES = [(1, 9, 2, 4, "random"), (2, 12, 3, 8, "ties"),
+              (2, 7, 1, 4, "random"), (3, 17, 2, 32, "ties"),
+              (4, 20, 3, 8, "zeros"), (5, 24, 3, 8, "pad"),
+              (3, 17, 2, 8, "int64"), (3, 12, 2, 4, "one_worker")]
 # port method -> the reference method it mirrors
 METHODS = {"kernel": "xla", "plain": "xla", "dense": "dense"}
 
@@ -51,12 +59,28 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _swap_inputs(G, N, W):
+def _swap_inputs(G, N, W, kind="random"):
+    """``random``: the reference's fixture; else one of SWAP_EDGES'."""
     rng = np.random.default_rng(G * 1000 + N)
-    return (rng.uniform(0, 10, (G, W)).astype(np.float32),
-            rng.uniform(0, 5, (N, W)).astype(np.float32),
-            rng.integers(-1, G, N).astype(np.int32),
-            rng.random(N) > 0.1)
+    loads = rng.uniform(0, 10, (G, W)).astype(np.float32)
+    cands = rng.uniform(0, 5, (N, W)).astype(np.float32)
+    assign = rng.integers(-1, G, N).astype(np.int32)
+    valid = rng.random(N) > 0.1
+    if kind == "ties":
+        loads = rng.integers(0, 3, (G, W)).astype(np.float32)
+        cands = rng.integers(0, 3, (N, W)).astype(np.float32)
+    elif kind == "zeros":
+        loads = np.where(rng.random((G, W)) < 0.5, -0.0, 0.0)
+        loads = loads.astype(np.float32)
+    elif kind == "pad":                  # rows 3.. are the pod's padding
+        loads[3:] = 1e30
+        loads[:3] = rng.integers(0, 900, (3, W))
+        assign = np.where(valid, rng.integers(0, 3, N), -1).astype(np.int32)
+    elif kind == "int64":
+        assign = assign.astype(np.int64)
+    elif kind == "one_worker":
+        assign = np.where(assign >= 0, 1, -1).astype(np.int32)
+    return loads, cands, assign, valid
 
 
 def _jax(*arrs):
@@ -67,13 +91,19 @@ def _torch(*arrs):
     return [torch.from_numpy(np.asarray(a)) for a in arrs]
 
 
-@pytest.mark.parametrize("G,N,W,tile", SWAP_FIXTURES)
-def test_swap_search_bit_identical(G, N, W, tile):
-    arrs = _swap_inputs(G, N, W)
+@pytest.mark.parametrize(
+    "G,N,W,tile,kind",
+    [pytest.param(*f, "random", id="-".join(map(str, f)))
+     for f in SWAP_FIXTURES]
+    + [pytest.param(*e, id="-".join(map(str, e))) for e in SWAP_EDGES])
+def test_swap_search_bit_identical(G, N, W, tile, kind):
+    arrs = _swap_inputs(G, N, W, kind)
     vd, ad = (np.asarray(x) for x in bfio_swap_best_ref(*_jax(*arrs)))
     vx, ax = (np.asarray(x) for x in swap_best_xla(*_jax(*arrs),
                                                    tile_i=tile))
     fin = np.isfinite(vd)
+    if kind == "one_worker" or G == 1:
+        assert not fin.any()
     for v, a in (bs.swap_best_plain(*_torch(*arrs), tile_i=tile),
                  bs.swap_best_dense(*_torch(*arrs)),
                  bs.swap_best(*_torch(*arrs))):
@@ -82,6 +112,7 @@ def test_swap_search_bit_identical(G, N, W, tile):
         np.testing.assert_array_equal(v, vx)
         np.testing.assert_array_equal(a[fin], ad[fin])
         np.testing.assert_array_equal(a[fin], ax[fin])
+        np.testing.assert_array_equal(a[~fin], 0)    # (+inf, 0)
 
 
 def test_swap_prep_matches_reference():
@@ -92,6 +123,18 @@ def test_swap_prep_matches_reference():
         for want, got in zip(ref_prep(*_jax(*arrs)),
                              bs.swap_prep(*_torch(*arrs))):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("G,N,W,kind", [e[:3] + e[4:] for e in SWAP_EDGES],
+                         ids=["-".join(map(str, e)) for e in SWAP_EDGES])
+def test_swap_prep_edges_match_reference(G, N, W, kind):
+    """What the card's kernel computes in its own prepass: the clamped
+    top-3 rows in stable argsort order (ties and -0.0 to the lower row)."""
+    from repro.kernels.bfio_swap import swap_prep as ref_prep
+    arrs = _swap_inputs(G, N, W, kind)
+    for want, got in zip(ref_prep(*_jax(*arrs)),
+                         bs.swap_prep(*_torch(*arrs))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def _instance(rng, G, N, W):

@@ -40,11 +40,27 @@ NORM_WIDTHS = [1024, 2048, 3072, 4096, 6144, 8192]
 NORM_ROWS = [1, 7, 32, 33, 132, 2048]
 PAGED_CASES = [(2, 4, 2, 32, 8, 4), (3, 8, 4, 64, 16, 5),
                (1, 16, 2, 128, 32, 3)]
-# (C, G, N, W, n_valid): the chip smoke's two shapes (the router's bucket
+# (C, G, N, W, kind): the chip smoke's two shapes (the router's bucket
 # with integer loads, pod scale with random floats), N below the kernel's
-# 64-row tile, and ragged tiles
+# 64-row tile, and ragged tiles; then pod_bfio_p2's two pods of two
+# replicas, one and two workers (argsort's positions clamped to row G-1),
+# exact ties (also over more than 32 workers), all-zero loads with -0.0,
+# the pod router's padding rows of load 1e30, int64 assign, a cluster
+# with no feasible pair, and windows at and just past the 12 slots the
+# kernel keeps in registers (each W up to 12 has its own compiled kernel;
+# wider ones walk their slots in chunks), and wider; and two shapes whose
+# j do not fit one staged tile (N over 1,024; a window of 100), so the
+# kernel searches one tile while copying the next
 SWAP_CASES = [(1, 4, 64, 1, 24), (8, 32, 512, 9, None), (1, 3, 17, 2, None),
-              (3, 4, 33, 3, None), (2, 5, 130, 4, 100)]
+              (3, 4, 33, 3, None), (2, 5, 130, 4, 100),
+              (2, 2, 64, 1, 24), (2, 2, 16, 3, "ties"), (2, 1, 40, 2, None),
+              (3, 3, 70, 2, "ties"), (2, 70, 90, 3, "ties"),
+              (2, 4, 50, 3, "zeros"), (2, 6, 64, 9, "pad"),
+              (3, 4, 33, 3, "int64"), (2, 3, 40, 2, "one_worker"),
+              (1, 8, 70, 12, None), (2, 5, 100, 13, None),
+              (1, 8, 70, 16, None), (2, 5, 100, 17, None),
+              (1, 3, 40, 40, "ties"), (1, 4, 1100, 2, None),
+              (2, 5, 300, 100, "ties")]
 DTYPES = {"float32": ("float32", torch.float32, 2e-5),
           "bfloat16": ("bfloat16", torch.bfloat16, 2e-2)}
 # (B, Hq, Hkv, hd, L, blk_l): the reference's sweep (tests/test_kernels.py)
@@ -93,24 +109,40 @@ def cuda():
     return torch.device("cuda")
 
 
-def _swap_inputs(C, G, N, W, n_valid, seed=0):
-    """With ``n_valid``: integer loads and sizes, the first rows valid
-    (the router's padded bucket); without: random floats, ragged
-    ``valid``, ``assign`` with -1s (the reference's fixtures)."""
+def _swap_inputs(C, G, N, W, kind, seed=0):
+    """``kind`` an int n: integer loads and sizes, the first n rows valid
+    (the router's padded bucket); None: random floats, ragged ``valid``,
+    ``assign`` with -1s (the reference's fixtures); or one of the edge
+    cases: ``ties`` (loads and sizes in {0, 1, 2}), ``zeros`` (loads of
+    0.0 and -0.0), ``pad`` (rows 3.. of load 1e30 that nothing is
+    assigned to, as the pod router pads), ``int64`` (assign as int64),
+    ``one_worker`` (the last cluster's admitted rows on one worker)."""
     rng = np.random.default_rng(seed)
-    if n_valid is not None:
+    if isinstance(kind, int):
         loads = rng.integers(0, 2048, (C, G, W)).astype(np.float32)
         cands = rng.integers(2, 256, (C, N, W)).astype(np.float32)
         valid = np.zeros((C, N), bool)
-        valid[:, :n_valid] = True
+        valid[:, :kind] = True
         assign = np.where(valid, rng.integers(0, G, (C, N)), -1)
     else:
         loads = rng.uniform(0, 10, (C, G, W)).astype(np.float32)
         cands = rng.uniform(0, 5, (C, N, W)).astype(np.float32)
         assign = rng.integers(-1, G, (C, N))
         valid = rng.random((C, N)) > 0.1
-    return [torch.from_numpy(a) for a in (loads, cands,
-                                          assign.astype(np.int32), valid)]
+    if kind == "ties":
+        loads = rng.integers(0, 3, (C, G, W)).astype(np.float32)
+        cands = rng.integers(0, 3, (C, N, W)).astype(np.float32)
+    elif kind == "zeros":
+        loads = np.where(rng.random((C, G, W)) < 0.5, -0.0, 0.0)
+        loads = loads.astype(np.float32)
+    elif kind == "pad":
+        loads[:, 3:] = 1e30
+        loads[:, :3] = rng.integers(0, 900, (C, 3, W))
+        assign = np.where(valid, rng.integers(0, 3, (C, N)), -1)
+    elif kind == "one_worker":
+        assign[-1] = np.where(assign[-1] >= 0, 0, -1)
+    assign = assign.astype(np.int64 if kind == "int64" else np.int32)
+    return [torch.from_numpy(a) for a in (loads, cands, assign, valid)]
 
 
 def _np32(a) -> np.ndarray:
@@ -548,6 +580,20 @@ class TestSwapWrapper:
         with pytest.raises(ValueError):
             bs.swap_best(*args)
 
+    @pytest.mark.parametrize("case", SWAP_CASES)
+    def test_cpu_plain_equals_dense(self, case):
+        """The card cases' fixtures on the CPU: the wrapper (the plain
+        version) against the dense oracle, (+inf, 0) where infeasible."""
+        args = _swap_inputs(*case, seed=13)
+        vp, ap = bs.swap_best(*args)
+        vd, ad = bs.swap_best_dense(*args)
+        fin = torch.isfinite(vd)
+        assert torch.equal(vp, vd) and torch.equal(ap[fin], ad[fin])
+        assert torch.all(ap[~fin] == 0)
+        assert bool(fin.any()) == (case[1] > 1)
+        if case[4] == "one_worker":
+            assert not fin[-1].any()
+
 
 @pytest.mark.cuda
 class TestKernelsOnCard:
@@ -662,11 +708,60 @@ class TestKernelsOnCard:
         vp, ap = bs.swap_best_plain(*args)
         vd, ad = bs.swap_best_dense(*args)
         fin = torch.isfinite(vp)
-        assert fin.any()
+        assert bool(fin.any()) == (case[1] > 1)
         assert torch.equal(vk, vp) and torch.equal(vk, vd)
         assert torch.equal(ak[fin], ap[fin]) and torch.equal(ak[fin],
                                                              ad[fin])
         assert torch.all(ak[~fin] == 0)       # (+inf, 0) as jnp.argmin
+
+    def test_swap_kernel_runs_no_torch_prepass(self, cuda, monkeypatch):
+        """The card's path computes the prepass inside the kernel: with
+        ``swap_prep`` made to raise, the call still answers, bit for bit,
+        and the profiler sees one device kernel and nothing else."""
+        from torch.profiler import ProfilerActivity, profile
+        args = [a.to(cuda) for a in _swap_inputs(8, 32, 512, 9, None,
+                                                  seed=13)]
+        vp, ap = bs.swap_best_plain(*args)
+        bs.swap_best(*args)                 # built and loaded
+        torch.cuda.synchronize()
+
+        def no_prep(*_a, **_k):
+            raise AssertionError("swap_prep ran on the card's path")
+        monkeypatch.setattr(bs, "swap_prep", no_prep)
+        for _ in range(3):        # a trace with no device activity: again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                vk, ak = bs.swap_best(*args)
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if kernels:
+                break
+        fin = torch.isfinite(vp)
+        assert torch.equal(vk, vp) and torch.equal(ak[fin], ap[fin])
+        assert len(kernels) == 1 and "swap_best" in kernels[0].name
+
+    @pytest.mark.parametrize("C,N", [(0, 16), (2, 0)])
+    def test_swap_kernel_empty(self, cuda, C, N):
+        args = [a.to(cuda) for a in _swap_inputs(max(C, 1), 3, N, 2, None)]
+        args = [a[:C] for a in args]
+        before = bs.swap_best.launches
+        v, a = bs.swap_best(*args)
+        assert v.shape == a.shape == (C, N)
+        assert v.dtype == torch.float32 and a.dtype == torch.int32
+        assert bs.swap_best.launches == before
+
+    def test_swap_kernel_refuses_wide_window(self, cuda):
+        W = bs._lib().swap_best_max_w(3) + 1
+        args = [a.to(cuda) for a in _swap_inputs(1, 3, 8, W, None)]
+        before = bs.swap_best.launches
+        with pytest.raises(ValueError, match="window"):
+            bs.swap_best(*args)
+        assert bs.swap_best.launches == before
+        vk, _ = bs.swap_best(*(a[..., :W - 1] for a in args[:2]),
+                             *args[2:])
+        vp, _ = bs.swap_best_plain(*(a[..., :W - 1] for a in args[:2]),
+                                   *args[2:])
+        assert torch.equal(vk, vp)
 
     def test_swap_solver_on_card_matches_cpu(self, cuda):
         from repro_torch.core.balancer_jax import bfio_assign_batch
