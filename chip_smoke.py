@@ -38,7 +38,9 @@ result line):
    BF-IO swap-search kernel (K4) at the fleet router's shape (C=1, G=4,
    N=64, W=1, integer loads), at pod scale (C=8, G=32, N=512, W=9,
    random floats, ragged ``valid``, ``assign`` with -1s) and at
-   ``pod_bfio_p2``'s two pods of two workers with tied loads, held
+   ``pod_bfio_p2``'s two pods of two workers with tied loads, and at the
+   device-loop path's shape (C=1, G=32, N=1024, W=1) on the inputs its
+   first step gives the kernel (recorded from a run of that step), held
    against its plain version and its dense oracle bit for bit
    (``best_val`` everywhere, ``best_j`` on finite rows, 0 on the
    others), with the profiler showing one device kernel a call.  Each is
@@ -59,7 +61,15 @@ result line):
    experts top-8) on inputs free of router near ties, card against CPU
    within 1e-4; granite-moe-3b-a800m-smoke and qwen3-moe-30b-a3b-smoke
    on the slot backend and on the paged backend with chunked prefill:
-   stats equal, differing generated tokens counted.
+   stats equal, differing generated tokens counted.  The device loop
+   (``serving/device_loop.py``) at the reference demo's configuration
+   (G=8, B=8, wait_cap 256, 128 integer-sized requests, 64 steps) as is,
+   with ``prefill_budget=16.0`` and with ``kv_pool=150.0``: every
+   ``LoopState`` field equal on the CPU (plain swap search) and the card
+   (K4).  The per-slot reference engine (``engine_mode="ref"``):
+   granite-8b-smoke and zamba2-1.2b-smoke on the slot backend, stats and
+   generations equal on the CPU and the card, and the card's ref engine
+   equal to its vec engine in stats, generations and workers.
 5. The single-engine path: ``repro_torch.launch.serve`` on full
    granite-8b (36 layers, bf16, seeded random weights), paged backend,
    bfio_h8, 4 workers x 8 slots, 32 requests of 16 new tokens.  Launch
@@ -83,12 +93,22 @@ result line):
    each of its 6 shared-attention applications per decode step, K5 on
    each of its 32 Mamba2 blocks per prefill call, K2 on every norm) and
    xlstm-350m (8 requests; K5 on each of its 21 mLSTM blocks per prefill
-   call, K2 on every norm).  Counters zeroed just before and read just
+   call, K2 on every norm), then granite-8b again through the per-slot
+   reference engine (the launcher's ``EngineConfig`` with
+   ``engine_mode="ref"``: every decode step over all 32 slots; K3 and K2
+   as above).  Counters zeroed just before and read just
    after each; each engine is freed before the next.
+8. The device-loop path: ``make_device_serving_loop`` at G=32 x B=16,
+   wait_cap 1024, 1,024 requests (the demo's bimodal mix scaled by 8),
+   in chunks of 16 steps until it drains (at most 400).  Every request
+   completes with no preemption, K4 launches ``swap_iters`` (4) times a
+   step, and PyTorch's sync debug mode sees no host read inside a step
+   (it is shown to see a known one first).  Prints the mean ms a step,
+   the device kernels of one profiled step and the average imbalance.
 
 The second-to-last line is ``{"kernels": [...]}`` (each kernel's launches
-by path under ``launches_by_path``: engine, moe, fleet and the three slot
-paths); the last line is
+by path under ``launches_by_path``: engine, moe, fleet, the three slot
+paths, ``slot_granite_ref`` and ``device_loop``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is disabled for matmuls and
 cuDNN so float32 comparisons are float32.
 """
@@ -101,6 +121,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -112,6 +133,8 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # bf16 on the tensor cores, dense
 TOL = dict(atol=2e-2, rtol=2e-2)
+# the device-loop path: workers, slots a worker, wait-buffer entries
+LOOP_G, LOOP_B, LOOP_W = 32, 16, 1024
 SLEEP_CYCLES = 5_000_000        # ~2.5 ms at H100 clocks: covers enqueue
 
 
@@ -416,12 +439,73 @@ def _device_kernels(fn) -> list[str]:
     return ran
 
 
-def _swap_case(dev, C, G, N, W, **kw):
-    """K4 on one case: bit-identical to the plain version and the dense
+def _loop_swap_inputs() -> tuple:
+    """K4's inputs at the device-loop path's shape, as that path's first
+    step gives them: the first swap search of step 1 (C=1, G=32, N=1024,
+    W=1; every wait entry valid, 512 of them placed by the greedy
+    phase), recorded from a run of that step."""
+    import repro_torch.core.balancer_jax as bj
+    from repro_torch.serving import init_loop_state, make_device_serving_loop
+    sizes, rem = _loop_stream(192, 832, 0, integer=False)
+    run = make_device_serving_loop(LOOP_G, LOOP_B, LOOP_W, swap_iters=1)
+    seen, inner = [], bj.swap_best
+
+    def record(*args):
+        seen.append(tuple(a.clone() for a in args))
+        return inner(*args)
+    bj.swap_best = record
+    try:
+        run(init_loop_state(LOOP_G, LOOP_B, sizes, rem, LOOP_W), 1)
+    finally:
+        bj.swap_best = inner
+    check(len(seen) == 1, f"device loop's first step ran {len(seen)} swap "
+          f"searches at swap_iters 1")
+    return seen[0]
+
+
+# the runtime calls that put an operation on the device
+_ISSUE_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _issued_ops(fn) -> dict:
+    """One profiled call of ``fn``, counted two ways: ``issued``, the
+    device operations (kernels, copies, sets) by the profiler's records of
+    the host's runtime calls that issue them (``by_api`` splits them by
+    call), and ``recorded``, the operations the device's own records
+    show (``k4_recorded`` of them the swap kernel's).  Over a call of
+    ~39,000 launches the device's records have come back short, by a
+    different number on each trace of the same step, while the host's
+    records were the same on every trace: so ``issued`` is the count,
+    and ``recorded`` only says what the trace kept."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    on_dev = [e.name() for e in events if e.device_type() == cuda]
+    by_api = {}
+    for e in events:
+        if e.device_type() != cuda and e.name() in _ISSUE_APIS:
+            by_api[e.name()] = by_api.get(e.name(), 0) + 1
+    return dict(issued=sum(by_api.values()), by_api=by_api,
+                recorded=len(on_dev),
+                k4_recorded=sum("swap_best_kernel" in n for n in on_dev))
+
+
+def _swap_case(dev, C, G, N, W, *, args=None, label="", **kw):
+    """K4 on one case (``args``: given inputs, else drawn by
+    ``_swap_inputs``): bit-identical to the plain version and the dense
     oracle, one device kernel a call, timed beside its bound and the plain
     version."""
     from repro_torch.kernels import bfio_swap as bs
-    args = _swap_inputs(dev, C, G, N, W, **kw)
+    if args is None:
+        args = _swap_inputs(dev, C, G, N, W, **kw)
+    check(tuple(args[1].shape) == (C, N, W) and args[0].shape[1] == G,
+          f"bfio_swap: inputs of shape {tuple(args[1].shape)}, G "
+          f"{args[0].shape[1]}, not C={C} G={G} N={N} W={W}")
     what = f"bfio_swap C={C} G={G} N={N} W={W}"
     vk, ak = bs.swap_best(*args)
     vp, ap = bs.swap_best_plain(*args)
@@ -455,7 +539,8 @@ def _swap_case(dev, C, G, N, W, **kw):
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, feasible_pairs=pairs,
                 shape=f"C={C} G={G} N={N} W={W}"
-                      + (", loads in {0, 1, 2}" if kw.get("ties") else ""))
+                      + (", loads in {0, 1, 2}" if kw.get("ties") else "")
+                      + label)
 
 
 _SWAP_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -464,13 +549,15 @@ _SWAP_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def phase_bfio_swap(dev):
     """K4 at the fleet router's shape (its power-of-two bucket of 64
-    candidates, 24 real), at pod scale, and at two pods of two workers
-    with tied loads; bit-identical to plain and dense, one kernel a
-    call."""
+    candidates, 24 real), at pod scale, at two pods of two workers with
+    tied loads, and at the device-loop path's shape on its first step's
+    inputs; bit-identical to plain and dense, one kernel a call."""
     fleet = _swap_case(dev, 1, 4, 64, 1, seed=11, n_valid=24)
     pod = _swap_case(dev, 8, 32, 512, 9, seed=12)
     ties = _swap_case(dev, 2, 2, 64, 3, seed=13, ties=True)
-    for k in (fleet, pod, ties):
+    loop = _swap_case(dev, 1, LOOP_G, LOOP_W, 1, args=_loop_swap_inputs(),
+                      label=", the device loop's first step")
+    for k in (fleet, pod, ties, loop):
         print(f"kernel bfio_swap [{k['shape']}]: {k['ms'] * 1e3:.2f} us, "
               f"one device kernel a call (bound {k['bound_ms'] * 1e3:.3f} us "
               f"by {k['bound_by']}, {k['feasible_pairs']} feasible pairs), "
@@ -483,7 +570,7 @@ def phase_bfio_swap(dev):
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape")},
                 at_pod_scale={k: pod[k] for k in _SWAP_KEYS},
-                cases=[{k: ties[k] for k in _SWAP_KEYS}])
+                cases=[{k: c[k] for k in _SWAP_KEYS} for c in (ties, loop)])
 
 
 def phase_cross_device(dev):
@@ -885,11 +972,17 @@ def _stack_counts(cfg) -> dict:
     return n
 
 
-def phase_slot_path(arch: str, n_requests: int) -> dict:
-    """One full-width slot path through the launcher; returns the five
-    kernels' launch counts of the run."""
+def phase_slot_path(arch: str, n_requests: int,
+                    engine_mode: str = "vec") -> dict:
+    """One full-width slot path through the launcher's entry points
+    (``engine_mode="ref"``: the launcher's engine config with the
+    per-slot seed oracle, every decode step over all 32 slots); returns
+    the five kernels' launch counts of the run."""
     import repro_torch.serving.engine as engine_mod
-    from repro_torch.launch.serve import build_parser, make_engine, serve
+    from repro_torch.core import make_policy
+    from repro_torch.launch.serve import (_engine_cfg, build_parser,
+                                          make_model, serve)
+    from repro_torch.serving import ServingEngine
     args = build_parser().parse_args(
         ["--arch", arch, "--policy", "bfio_h8", "--cache-backend", "slot",
          "--workers", "4", "--slots", "8", "--requests", str(n_requests),
@@ -898,7 +991,12 @@ def phase_slot_path(arch: str, n_requests: int) -> dict:
     base = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = make_engine(args)
+    cfg, params, device = make_model(args)
+    eng = ServingEngine(
+        cfg, params, dataclasses.replace(_engine_cfg(args),
+                                         engine_mode=engine_mode),
+        make_policy(args.policy), device=device)
+    del params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prefills = [0]
@@ -916,7 +1014,8 @@ def phase_slot_path(arch: str, n_requests: int) -> dict:
     launches = _zero_and_read(launches)
     stats, meas, reqs = out["stats"], out["measured"], out["requests"]
     cfg = eng.cfg
-    what = f"slot path {cfg.name}"
+    what = f"slot path {cfg.name}" + (
+        " engine_mode=ref" if engine_mode == "ref" else "")
     check(all(r.done and not r.failed for r in reqs),
           f"{what}: not every request finished")
     check(all(len(r.generated) == args.max_new for r in reqs),
@@ -1148,6 +1247,187 @@ def phase_cross_device_long_prompts(dev):
     return out
 
 
+def phase_cross_device_ref(dev):
+    """The per-slot reference engine (``engine_mode="ref"``) on the CPU and
+    on the card: granite-8b-smoke and zamba2-1.2b-smoke in float32 on the
+    slot backend, same weights and stream.  Stats and generations equal
+    across devices, and the card's ref engine equal to the card's vec
+    engine in stats, generations and workers."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_policy
+    from repro_torch.launch.serve import submit_requests
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    out = []
+    for arch in ("granite-8b", "zamba2-1.2b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        p_cpu = init_params(cfg, 0, device="cpu")
+        p_dev = _tree_to(p_cpu, dev)
+        runs = []
+        for params, d, mode in ((p_cpu, "cpu", "ref"), (p_dev, dev, "ref"),
+                                (p_dev, dev, "vec")):
+            ec = EngineConfig(n_workers=2, slots_per_worker=4,
+                              max_seq_len=256, cache_backend="slot",
+                              engine_mode=mode)
+            eng = ServingEngine(cfg, params, ec, make_policy("bfio_h8"),
+                                device=d)
+            reqs = submit_requests(eng, 12, 8, seed=5)
+            stats = eng.run()
+            runs.append((stats, [r.generated for r in reqs],
+                         [r.worker for r in reqs]))
+        (cs, cg, _), (rs, rg, rw), (vs, vg, vw) = runs
+        check(cs == rs, f"cross-device ref {cfg.name}: engine stats differ "
+              f"{cs} vs {rs}")
+        check(cg == rg, f"cross-device ref {cfg.name}: generations on the "
+              f"card differ from the CPU plain path")
+        check(rs == vs and rg == vg and rw == vw,
+              f"ref vs vec {cfg.name} on the card: stats, generations or "
+              f"workers differ")
+        out.append((cfg.name, rs["tokens"]))
+    return out
+
+
+def _loop_stream(n_heavy: int, n_light: int, seed: int, *, integer: bool):
+    """The device-loop demo's bimodal stream (examples/device_loop_demo.py):
+    ``n_heavy`` prompts of 200..300 and ``n_light`` of 5..30, each with
+    4..23 decode steps; ``integer`` draws whole sizes, so that every
+    float32 sum of the loop is exact in any order."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        sizes = np.concatenate([rng.integers(200, 301, n_heavy),
+                                rng.integers(5, 31, n_light)])
+    else:
+        sizes = np.concatenate([rng.uniform(200, 300, n_heavy),
+                                rng.uniform(5, 30, n_light)])
+    return sizes.astype(np.float64), rng.integers(4, 24, len(sizes))
+
+
+def phase_cross_device_loop(dev):
+    """The device loop on the CPU (plain swap search) and on the card
+    (K4) at the demo's configuration (G=8, B=8, wait_cap 256, 128
+    integer-sized requests), as is, with a prefill budget of 16 and with
+    a KV pool of 150: after 64 steps every ``LoopState`` field equal."""
+    from repro_torch.serving import init_loop_state, make_device_serving_loop
+    G, B, W, steps = 8, 8, 256, 64
+    sizes, rem = _loop_stream(24, 104, 0, integer=True)
+    out = []
+    for kw in ({}, {"prefill_budget": 16.0}, {"kv_pool": 150.0}):
+        states = []
+        for d in ("cpu", dev):
+            run = make_device_serving_loop(G, B, W, device=d, **kw)
+            states.append(run(init_loop_state(G, B, sizes, rem, W,
+                                              device=d), steps))
+        what = ", ".join(f"{k}={v}" for k, v in kw.items()) or "plain"
+        for field in states[0]._fields:
+            a, b = getattr(states[0], field), getattr(states[1], field)
+            check(a.dtype == b.dtype and torch.equal(a, b.cpu()),
+                  f"cross-device loop ({what}): {field} differs between "
+                  f"the CPU and the card")
+        st = states[1]
+        if not kw:
+            check(int(st.slot_active.sum()) == 0
+                  and int((st.wait_prefill > 0).sum()) == 0,
+                  "cross-device loop: the demo's requests were not all "
+                  "served in 64 steps")
+        out.append((what, int(st.tot_steps), float(st.tot_imbalance),
+                    int(st.tot_preempts)))
+    return out
+
+
+def _host_reads(fn):
+    """(fn(), the synchronizing operations PyTorch's sync debug mode saw
+    inside the call)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def phase_device_loop_path() -> dict:
+    """The device-loop path at full width: G=32, B=16 (512 slots),
+    wait_cap 1024, the demo's mix scaled by 8 (1,024 requests), run in
+    chunks of 16 steps until the loop is empty (400 steps at most), with
+    PyTorch's sync debug mode on inside each chunk: a step must make no
+    host read.  K4 must launch ``swap_iters`` times a step, by its
+    counter over the whole run and over each of two profiled first
+    steps, whose issued device operations must be equal.  Prints the
+    mean ms a step, the issued and recorded operations of the profiled
+    step and the average imbalance a step; returns the kernels' launch
+    counts."""
+    from repro_torch.serving import init_loop_state, make_device_serving_loop
+    G, B, W, swap_iters, chunk = LOOP_G, LOOP_B, LOOP_W, 4, 16
+    dev = torch.device("cuda")
+    one = torch.ones(1, device=dev)
+    check(_host_reads(lambda: one.item())[1], "device-loop path: the sync "
+          "debug mode did not see a known host read")
+    sizes, rem = _loop_stream(192, 832, 0, integer=False)
+    run = make_device_serving_loop(G, B, W, swap_iters=swap_iters)
+    state = init_loop_state(G, B, sizes, rem, W)
+    # the first step, profiled twice from the same state: the issued
+    # count must repeat, and the launch counter sees K4 swap_iters times
+    traces = []
+    for _ in range(2):
+        before = _zero_and_read(None)
+        traces.append(_issued_ops(lambda: run(state, 1)))
+        traces[-1]["k4_counted"] = _zero_and_read(before)["bfio_swap"]
+    launches = _zero_and_read(None)
+    chunk_s, syncs = [], []
+    while int(state.tot_steps) < 400:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, reads = _host_reads(lambda: run(state, chunk))
+        torch.cuda.synchronize(dev)
+        chunk_s.append(time.perf_counter() - t0)
+        syncs += reads
+        if not bool(state.slot_active.any() | (state.wait_prefill > 0).any()):
+            break
+    launches = _zero_and_read(launches)
+    steps = int(state.tot_steps)
+    what = "device-loop path"
+    check(not syncs, f"{what}: a step read the device from the host: "
+          f"{syncs[:3]}")
+    check(int(state.slot_active.sum()) == 0
+          and int((state.wait_prefill > 0).sum()) == 0,
+          f"{what}: requests left after {steps} steps")
+    check(int(state.tot_preempts) == 0, f"{what}: preemptions without a "
+          f"pool")
+    check(launches["bfio_swap"] == swap_iters * steps,
+          f"{what}: swap kernel launched {launches['bfio_swap']} times in "
+          f"{steps} steps, need {swap_iters} a step")
+    for t in traces:
+        check(t["k4_counted"] == swap_iters, f"{what}: the profiled step "
+              f"launched the swap kernel {t['k4_counted']} times, need "
+              f"{swap_iters}")
+        check(0 < t["recorded"] <= t["issued"], f"{what}: the device "
+              f"recorded {t['recorded']} operations of {t['issued']} "
+              f"issued")
+    check(traces[0]["by_api"] == traces[1]["by_api"], f"{what}: two "
+          f"traces of the same step issued {traces[0]['by_api']} and "
+          f"{traces[1]['by_api']}")
+    ms = 1e3 * sum(chunk_s) / steps
+    print(f"{what}: G={G} x B={B} ({G * B} slots), wait_cap {W}, "
+          f"{len(sizes)} requests (192 of 200..300 tokens, 832 of 5..30), "
+          f"swap_iters {swap_iters}; {steps} steps in {len(chunk_s)} chunks "
+          f"of {chunk}, all served, 0 host reads inside a step; launches "
+          f"{launches}")
+    print(f"{what} MEASURED on {torch.cuda.get_device_name(0)}: "
+          f"{ms:.2f} ms a step (mean over {steps} steps, device "
+          f"synchronised at each chunk's ends); the first step issued "
+          f"{traces[0]['issued']} device operations "
+          f"({traces[0]['by_api']}) in each of two traces, of which the "
+          f"device recorded {traces[0]['recorded']} and "
+          f"{traces[1]['recorded']} (K4 {traces[0]['k4_recorded']} and "
+          f"{traces[1]['k4_recorded']}); {swap_iters} K4 launches a step "
+          f"by the counter; average imbalance "
+          f"{float(state.tot_imbalance) / steps:.2f} a step")
+    return launches
+
+
 def _free() -> None:
     """Release a finished path's device memory: the wrapped ``decode``
     methods of the fleet's counting hook form reference cycles, so
@@ -1244,6 +1524,16 @@ def main() -> None:
               f"prompts of 129..200 tokens at prefill pad 256, {toks} "
               f"tokens, {n_scan} scans on the card at chunk 128; stats and "
               f"generations equal on cpu and the card")
+    for what, steps, imb, pre in phase_cross_device_loop(dev):
+        print(f"cross-device loop: G=8 x B=8, wait_cap 256, 128 integer "
+              f"sizes, {what}: {steps} steps, imbalance {imb:.1f}, {pre} "
+              f"preemptions; every LoopState field equal on cpu and the "
+              f"card")
+    for name, toks in phase_cross_device_ref(dev):
+        print(f"cross-device ref: {name} f32 on the slot backend, "
+              f"engine_mode=ref, {toks} tokens; stats and generations equal "
+              f"on cpu and the card, and equal to the card's vec engine "
+              f"(workers too)")
     ffn, engines = phase_cross_device_moe(dev)
     for shape, err in ffn:
         print(f"cross-device moe: moe_ffn {shape} f32 at qwen3-moe-30b-a3b's "
@@ -1257,7 +1547,10 @@ def main() -> None:
     paths.update({"fleet": phase_fleet_path(),
                   "slot_granite": phase_slot_path("granite-8b", 32),
                   "slot_zamba2": phase_slot_path("zamba2-1.2b", 32),
-                  "slot_xlstm": phase_slot_path("xlstm-350m", 8)})
+                  "slot_xlstm": phase_slot_path("xlstm-350m", 8),
+                  "slot_granite_ref": phase_slot_path("granite-8b", 32,
+                                                      engine_mode="ref"),
+                  "device_loop": phase_device_loop_path()})
 
     rows = []
     for k in kernels:

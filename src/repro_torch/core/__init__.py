@@ -1,7 +1,9 @@
 """BF-IO core: the host-side numpy modules (workload models, the (IO)
-solver, lookahead, routing policies, metrics and the power model) and
-the batched balancer on the device, :mod:`repro_torch.core.balancer_jax`
-(``bfio_assign``, ``bfio_assign_batch``, ``windowed_imbalance``)."""
+solver, lookahead, routing policies, metrics, the power model, the
+closed-form theory of the paper's Section 5 and the serving simulator)
+and the batched balancer on the device,
+:mod:`repro_torch.core.balancer_jax` (``bfio_assign``,
+``bfio_assign_batch``, ``windowed_imbalance``)."""
 from .workload import (  # noqa: F401
     ArrivalInstance,
     DriftModel,
@@ -46,3 +48,5 @@ from .energy import (  # noqa: F401
     energy_sandwich,
     saving_bound,
 )
+from .simulator import SimConfig, SimTrace, simulate  # noqa: F401
+from . import theory  # noqa: F401

@@ -1,7 +1,8 @@
 """Serving runtime: the multi-worker decode engine with router-integrated
 load balancing, the contiguous slot and paged KV backends (the paged one
-vLLM-style blocks with prefix caching), and the admission scheduler with
-chunked prefill and preemption under memory pressure."""
+vLLM-style blocks with prefix caching), the admission scheduler with
+chunked prefill and preemption under memory pressure, and the
+device-side routed serving loop."""
 from .engine import (  # noqa: F401
     EngineConfig,
     LoadSnapshot,
@@ -13,6 +14,11 @@ from .cache_backend import (  # noqa: F401
     PagedCacheBackend,
     SlotCacheBackend,
     make_cache_backend,
+)
+from .device_loop import (  # noqa: F401
+    LoopState,
+    init_loop_state,
+    make_device_serving_loop,
 )
 from .paged_cache import BlockAllocator, PagedKVCache, PrefixIndex  # noqa: F401
 from .preemption import (  # noqa: F401

@@ -25,6 +25,12 @@ deployment — that is the point of the paper.
   per-slot layout (every ported family; decode runs the contiguous
   decode-attention kernel), ``"paged"`` vLLM-style block paging whose
   decode runs the paged-attention kernel (attention-family models only).
+* ``EngineConfig.engine_mode``: ``"vec"`` (default) is the array hot
+  path over the shared :class:`~repro_torch.serving.slot_table.SlotTable`;
+  ``"ref"`` is the reference's per-slot Python loops, per-request cache
+  writes and full-batch decode of all G*B slots every step, kept as the
+  oracle the vec path is held to (slot backend, synchronous prefill
+  only).
 
 The engine's time and energy are MODELLED, exactly as in the reference:
 ``step_overhead + t_token * max load`` priced under ``EngineConfig.
@@ -116,7 +122,7 @@ class EngineConfig:
     t_token: float = 1.005e-7
     power: PowerModel = A100_POWER
     greedy: bool = True             # greedy sampling
-    engine_mode: str = "vec"        # "vec" (array hot path); "ref" unported
+    engine_mode: str = "vec"        # "vec" (array hot path) | "ref" (seed)
     cache_backend: str = "slot"     # "slot" (contiguous) | "paged" (vLLM)
     # chunked prefill: 0 = synchronous (a request's whole prompt prefills
     # in its admission step); c > 0 = at most c prompt tokens per job per
@@ -209,17 +215,17 @@ class ServingEngine:
         """``device`` is ``cuda`` unless the caller passes another (the
         tests pass ``"cpu"``); ``params`` must already live there."""
         ec = engine_cfg
-        if ec.engine_mode == "ref":
-            raise NotImplementedError(
-                "engine_mode='ref' (the per-slot seed oracle) is not ported "
-                "— ROADMAP Queue A item 13; the reference package's engine "
-                "serves as the port's oracle")
-        if ec.engine_mode != "vec":
+        if ec.engine_mode not in ("vec", "ref"):
             raise ValueError(
                 f"engine_mode must be 'vec' or 'ref', got "
                 f"{ec.engine_mode!r}")
         # a budget alone turns chunking on (one chunk == the budget)
         chunk = ec.prefill_chunk or ec.prefill_budget
+        if ec.engine_mode == "ref" and (ec.cache_backend != "slot"
+                                        or chunk):
+            raise ValueError(
+                "engine_mode='ref' is the seed oracle: it supports only "
+                "cache_backend='slot' with synchronous prefill")
         if chunk and (cfg.family not in ("dense", "moe")
                       or not supports_paged_stack(cfg)):
             raise ValueError(
@@ -264,7 +270,7 @@ class ServingEngine:
         self.slot_req: list[Optional[ServeRequest]] = [None] * N
         self.slot_tokens = np.zeros(N, dtype=np.int32)   # next input token
         self.slot_load = self.table.load                 # workload proxy
-        # per-slot request scalars (mirrors of the ServeRequest
+        # vec-mode per-slot request scalars (mirrors of the ServeRequest
         # fields the scheduler context needs, so ctx build is one gather)
         self.slot_age = np.zeros(N, dtype=np.int64)      # len(generated)
         self.slot_max_new = np.zeros(N, dtype=np.int64)
@@ -329,11 +335,26 @@ class ServingEngine:
                                 self.t_now, n_prompt=len(req.tokens))
         self.scheduler.submit(req)
 
+    def _worker_of(self, slot: int) -> int:
+        return slot // self.B
+
     def _loads(self) -> np.ndarray:
-        return self.table.loads()
+        if self.ec.engine_mode == "vec":
+            return self.table.loads()
+        loads = np.zeros(self.G)
+        for s, r in enumerate(self.slot_req):
+            if r is not None:
+                loads[self._worker_of(s)] += self.slot_load[s]
+        return loads
 
     def _counts(self) -> np.ndarray:
-        return self.table.counts()
+        if self.ec.engine_mode == "vec":
+            return self.table.counts()
+        counts = np.zeros(self.G, dtype=np.int64)
+        for s, r in enumerate(self.slot_req):
+            if r is not None:
+                counts[self._worker_of(s)] += 1
+        return counts
 
     def load_snapshot(self) -> LoadSnapshot:
         """Cheap public summary of this engine's load state (see
@@ -422,13 +443,26 @@ class ServingEngine:
         if caps.sum() <= 0:
             return 0, 0
         loads = self._loads()
-        act_idx = self.table.active_indices()
-        active_worker = self.table.worker[act_idx]
-        active_w = self.table.load[act_idx]
-        active_age = self.slot_age[act_idx]
-        active_remaining = np.maximum(
-            self.slot_max_new[act_idx] - active_age, 1)
-        prefill_remaining = self.table.prefill_left[act_idx]
+        if self.ec.engine_mode == "vec":
+            act_idx = self.table.active_indices()
+            active_worker = self.table.worker[act_idx]
+            active_w = self.table.load[act_idx]
+            active_age = self.slot_age[act_idx]
+            active_remaining = np.maximum(
+                self.slot_max_new[act_idx] - active_age, 1)
+            prefill_remaining = self.table.prefill_left[act_idx]
+        else:
+            act = [(s, r) for s, r in enumerate(self.slot_req)
+                   if r is not None]
+            active_worker = np.array([self._worker_of(s) for s, _ in act],
+                                     dtype=np.int64)
+            active_w = np.array([self.slot_load[s] for s, _ in act])
+            active_age = np.array([len(r.generated) for _, r in act],
+                                  dtype=np.int64)
+            active_remaining = np.array(
+                [max(r.max_new_tokens - len(r.generated), 1)
+                 for _, r in act], dtype=np.int64)
+            prefill_remaining = np.zeros(len(act), dtype=np.int64)
         ctx = SchedulerContext(
             k=self.steps,
             loads=loads,
@@ -831,16 +865,19 @@ class ServingEngine:
         cannot hold more); the prefill pad never exceeds ``max_seq_len``.
         """
         ec = self.ec
+        vec = ec.engine_mode == "vec"
         seqs = [self._admit_tokens(r) for r, _ in items]
         pad = min(max(ec.prefill_pad, max(len(t) for t in seqs)),
                   ec.max_seq_len)
-        # round the pad up to a multiple of prefill_pad so the prefill
-        # sees few distinct sequence lengths (the reference's jit buckets)
-        pad = min(-(-pad // ec.prefill_pad) * ec.prefill_pad,
-                  ec.max_seq_len)
+        if vec:
+            # round the pad up to a multiple of prefill_pad so the prefill
+            # sees few distinct sequence lengths (the reference's jit
+            # buckets)
+            pad = min(-(-pad // ec.prefill_pad) * ec.prefill_pad,
+                      ec.max_seq_len)
         nb = len(items)
-        # bucket the batch dim too (same ladder as compact decode)
-        nbp = next(b for b in self._buckets if b >= nb)
+        # vec: bucket the batch dim too (same ladder as compact decode)
+        nbp = next(b for b in self._buckets if b >= nb) if vec else nb
         toks = np.zeros((nbp, pad), dtype=np.int32)
         lens = np.zeros(nbp, dtype=np.int32)
         for i, t in enumerate(seqs):
@@ -855,14 +892,28 @@ class ServingEngine:
 
         # place each request into a free slot of its assigned worker
         workers = np.array([g for _, g in items], dtype=np.int64)
-        slots = self.table.allocate(workers)
+        if vec:
+            slots = self.table.allocate(workers)
+        else:
+            slots = np.empty(nb, dtype=np.int64)
+            for i, (r, g) in enumerate(items):
+                free = [s for s in range(g * self.B, (g + 1) * self.B)
+                        if self.slot_req[s] is None]
+                if not free:
+                    raise RuntimeError(
+                        f"worker {g} has no free slot for request {r.rid} "
+                        f"(policy assignment not capped?)")
+                slots[i] = free[0]
+                self.slot_req[free[0]] = r
+            self.table.active[slots] = True
         done_slots = []
         length_fix = []
         for i, (r, g) in enumerate(items):
             slot = int(slots[i])
             r.worker, r.slot = g, slot
             r.status = "active"
-            self.slot_req[slot] = r
+            if vec:
+                self.slot_req[slot] = r  # ref set it during the free scan
             self.slot_load[slot] = float(lens[i])
             self.slot_max_new[slot] = r.max_new_tokens
             self.slot_eos[slot] = r.eos_id
@@ -900,10 +951,14 @@ class ServingEngine:
             if (len(r.generated) >= r.max_new_tokens
                     or first_tok == r.eos_id):
                 done_slots.append((slot, r))
-        chains = [self._prefix_chain(r, toks[i, :int(lens[i])])
-                  for i, (r, _) in enumerate(items)]
-        self.backend.write_prefill(mini_cache, np.arange(nb), slots,
-                                   tokens=toks, chains=chains)
+        if vec:
+            chains = [self._prefix_chain(r, toks[i, :int(lens[i])])
+                      for i, (r, _) in enumerate(items)]
+            self.backend.write_prefill(mini_cache, np.arange(nb), slots,
+                                       tokens=toks, chains=chains)
+        else:
+            for i in range(nb):     # seed path: one copy a request
+                self.backend.write_prefill(mini_cache, [i], [int(slots[i])])
         for slot, length in length_fix:    # paged-only (resume path)
             self.backend.kv.set_length(slot, length)
         for slot, r in done_slots:
@@ -927,10 +982,16 @@ class ServingEngine:
             # before the barrier: preempt victims rather than letting the
             # allocator raise mid-decode
             self._ensure_decode_capacity()
-        active_idx = self.table.active_indices()
-        decode_idx = self.table.decode_indices() \
-            if self.scheduler.chunked else active_idx
-        n_active = active_idx.size
+        vec = self.ec.engine_mode == "vec"
+        if vec:
+            active_idx = self.table.active_indices()
+            decode_idx = self.table.decode_indices() \
+                if self.scheduler.chunked else active_idx
+            n_active = active_idx.size
+        else:
+            decode_idx = [s for s, r in enumerate(self.slot_req)
+                          if r is not None]
+            n_active = len(decode_idx)
         loads = self._loads()
         lmax = float(loads.max()) if n_active else 0.0
         dt = self.ec.step_overhead + self.ec.t_token * lmax
@@ -943,7 +1004,10 @@ class ServingEngine:
 
         n_decode = len(decode_idx)
         if n_decode:
-            self._decode_step_vec(np.asarray(decode_idx))
+            if vec:
+                self._decode_step_vec(np.asarray(decode_idx))
+            else:
+                self._decode_step_ref(decode_idx)
         if self.ec.cache_backend == "paged":
             self.kv_peak_bytes = max(self.kv_peak_bytes,
                                      self.backend.resident_kv_bytes())
@@ -961,6 +1025,29 @@ class ServingEngine:
                 "prefill_tokens": chunk_tokens,
                 "prefilling": self.scheduler.n_prefilling,
                 "phase": phase}
+
+    def _decode_step_ref(self, active: list[int]) -> None:
+        """Seed decode path: always decode all G*B slots, per-slot loop."""
+        n = self.slot_tokens.size            # G*B: the whole cache
+        nxt = self.backend.decode(self.slot_tokens, np.arange(n), n)
+        for s in active:
+            r = self.slot_req[s]
+            tok = int(nxt[s])
+            r.generated.append(tok)
+            self.slot_tokens[s] = tok
+            self.tokens_out += 1
+            self.slot_load[s] += self.drift.increment(self.steps)
+            if (len(r.generated) >= r.max_new_tokens
+                    or tok == r.eos_id):
+                r.t_finish = self.t_now
+                r.status = "done"
+                if self._obs_rec.enabled:
+                    self._obs_rec.point(self._obs_replica, r.rid,
+                                        "completed", self.t_now,
+                                        n_generated=len(r.generated))
+                self.slot_req[s] = None
+                self.slot_load[s] = 0.0
+                self.table.active[s] = False
 
     def _decode_step_vec(self, active_idx: np.ndarray) -> None:
         """Vectorized decode path: compact the active slots into the

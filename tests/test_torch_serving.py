@@ -216,16 +216,17 @@ def test_allocator_and_prefix_index_sequences_equal(evict):
 
 def test_unported_paths_raise(weights):
     """The slot backend is ported (tests/test_torch_slot.py); an unported
-    family on it (vlm; MoE is ported, tests/test_torch_moe.py), and the
-    per-slot ``engine_mode="ref"``, still raise naming their ROADMAP
-    item."""
+    family on it (vlm; MoE is ported, tests/test_torch_moe.py) still
+    raises naming its ROADMAP item.  The per-slot ``engine_mode="ref"``
+    is ported (tests/test_torch_engine_ref.py) and, as in the reference,
+    refuses the paged backend with a ``ValueError``."""
     _, _, tparams, _ = weights
     vlm = ModelConfig(**dict(TINY, name="tiny-vlm", family="vlm",
                              patch_tokens=4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_cache_backend("slot", vlm, tparams,
                            EngineConfig(cache_backend="slot"), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="seed oracle"):
         ServingEngine(CFG, tparams, EngineConfig(engine_mode="ref",
                                                  cache_backend="paged"),
                       make_policy("fcfs"), device="cpu")
