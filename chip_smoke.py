@@ -11,16 +11,18 @@ result line):
    with the compiler's register report).
 3. Kernel phases, at the shapes of the serving paths: the RMS-norm
    kernel (K2) on (32, 4096) bf16, at a prefill shape (2048, 4096) and at
-   widths 6144 and 8192, each plain and with the residual add fused (its
+   widths 6144, 8192 and 384, each plain and with the residual add fused (its
    sum PyTorch's, its norm bit-identical to the kernel's norm of that
    sum), also timed back to back from a CUDA graph, beside ``F.rms_norm``
    (after ``x + r`` for the fused call); the paged decode-attention kernel
    (K1) at B=32, Hq=32, Hkv=8, hd=128, block 16, 16 blocks per row (bf16
-   pool, permuted tables, ragged lengths including 1 and 256) and at
-   granite-34b's head layout (Hq=48 over one KV head); the contiguous
+   pool, permuted tables, ragged lengths including 1 and 256), at
+   granite-34b's head layout (Hq=48 over one KV head) and at the vlm
+   path's rows (B=8, lengths 2,944..3,008 over 188 blocks); the contiguous
    decode-attention kernel (K3) at granite-8b's slot shape (B=32, Hq=32,
-   Hkv=8, hd=128, L=256), zamba2's (Hq=Hkv=32, hd=64) and granite-34b's
-   head layout, with a rolling case (lengths past L) and a
+   Hkv=8, hd=128, L=256), zamba2's (Hq=Hkv=32, hd=64), granite-34b's head
+   layout and whisper-tiny's (Hq=Hkv=6, hd=64), with a rolling case
+   (lengths past L) and a
    sliding-window case (bf16, ragged lengths including 1 and L); each
    held against its plain PyTorch version (bf16, atol = rtol = 2e-2).
    K1 and K3 are timed whole and as their split pass alone, and each
@@ -61,7 +63,12 @@ result line):
    experts top-8) on inputs free of router near ties, card against CPU
    within 1e-4; granite-moe-3b-a800m-smoke and qwen3-moe-30b-a3b-smoke
    on the slot backend and on the paged backend with chunked prefill:
-   stats equal, differing generated tokens counted.  The device loop
+   stats equal, differing generated tokens counted.  The vlm and audio
+   families: llava-next-mistral-7b-smoke on the paged and the slot
+   backend, whisper-tiny-smoke on the slot backend in vec and in ref
+   mode (the engine's zero patch and frame stubs): stats and generations
+   equal, and the card's audio vec engine equal to its ref engine in
+   stats, generations and workers.  The device loop
    (``serving/device_loop.py``) at the reference demo's configuration
    (G=8, B=8, wait_cap 256, 128 integer-sized requests, 64 steps) as is,
    with ``prefill_budget=16.0`` and with ``kv_pool=150.0``: every
@@ -78,7 +85,13 @@ result line):
    the MoE path the same way: full qwen3-moe-30b-a3b (48 layers, d=2048,
    128 experts top-8, bf16, 30.5 B parameters), with its init seconds,
    peak device memory and mean decode-step ms; its weights are freed
-   before the next phase.
+   before the next phase.  Then the vlm path: full llava-next-mistral-7b
+   (32 layers, d=4096, 32/8 heads of 128, bf16, with the projector), the
+   launcher's ``EngineConfig`` with ``max_seq_len=3072`` (its 256 cannot
+   hold the image), G=4 x B=2 slots, 16 requests of 16 new tokens, each
+   prompt the image's 2,880 patch positions (the zero stub) and 4..63
+   text tokens: K1 on each of its 32 layers and K2 on each of its 65
+   norms a decode step, at rows of about 2,900-2,960 tokens.
 6. The fleet path: ``repro_torch.launch.serve`` in fleet mode on full
    granite-8b (one shared copy of the weights), 4 replicas of 4 workers x
    8 slots, ``bfio_h0`` engines behind the ``bfio`` router, 64 requests of
@@ -93,7 +106,11 @@ result line):
    each of its 6 shared-attention applications per decode step, K5 on
    each of its 32 Mamba2 blocks per prefill call, K2 on every norm) and
    xlstm-350m (8 requests; K5 on each of its 21 mLSTM blocks per prefill
-   call, K2 on every norm), then granite-8b again through the per-slot
+   call, K2 on every norm), whisper-tiny (32 requests; K3 on each of its
+   4 decoder layers and K2 on its 13 norms, cross norms included, a
+   decode step, and the encoder's 9 norms a prefill call; the encoder
+   and the cross attention are plain PyTorch), then granite-8b again
+   through the per-slot
    reference engine (the launcher's ``EngineConfig`` with
    ``engine_mode="ref"``: every decode step over all 32 slots; K3 and K2
    as above).  Counters zeroed just before and read just
@@ -107,8 +124,8 @@ result line):
    the device kernels of one profiled step and the average imbalance.
 
 The second-to-last line is ``{"kernels": [...]}`` (each kernel's launches
-by path under ``launches_by_path``: engine, moe, fleet, the three slot
-paths, ``slot_granite_ref`` and ``device_loop``); the last line is
+by path under ``launches_by_path``: engine, moe, vlm, fleet, the four
+slot paths, ``slot_granite_ref`` and ``device_loop``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is disabled for matmuls and
 cuDNN so float32 comparisons are float32.
 """
@@ -272,11 +289,12 @@ _NORM_KEYS = ("shape", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
 
 def phase_rms_norm(dev):
     """K2 at the decode shape (32, 4096) bf16 (the row's numbers), at a
-    prefill shape (2048, 4096) and at granite-34b's and qwen2-72b's widths
-    (6144, 8192) at 32 rows, each plain and with the residual add fused."""
+    prefill shape (2048, 4096), at granite-34b's and qwen2-72b's widths
+    (6144, 8192) and at whisper-tiny's (384) at 32 rows, each plain and
+    with the residual add fused."""
     cases = []
     for R, d, seed in ((32, 4096, 1), (2048, 4096, 3), (32, 6144, 4),
-                       (32, 8192, 5)):
+                       (32, 8192, 5), (32, 384, 6)):
         cases += [_norm_case(dev, R, d, fused=False, seed=seed),
                   _norm_case(dev, R, d, fused=True, seed=seed)]
     for c in cases:
@@ -298,16 +316,16 @@ def phase_rms_norm(dev):
                 cases=[{k: c[k] for k in _NORM_KEYS} for c in cases[1:]])
 
 
-def _paged_case(dev, flush, B, Hq, Hkv, hd, bs, mb, *, seed):
-    """K1 on one bf16 case (permuted tables, ragged lengths including 1
-    and ``mb * bs``): against plain, timed whole and split pass alone
-    beside its byte bound, the plain version and SDPA over the gathered
-    contiguous view (the gather untimed)."""
+def _paged_case(dev, flush, B, Hq, Hkv, hd, bs, mb, *, seed, lo=1):
+    """K1 on one bf16 case (permuted tables, ragged lengths from ``lo`` to
+    ``mb * bs``, both ends included): against plain, timed whole and split
+    pass alone beside its byte bound, the plain version and SDPA over the
+    gathered contiguous view (the gather untimed)."""
     from repro_torch.kernels import paged_attention as pa
     n_pool = B * mb
     rng = np.random.default_rng(seed)
-    lens = rng.integers(1, mb * bs + 1, size=B).astype(np.int32)
-    lens[0], lens[1] = 1, mb * bs
+    lens = rng.integers(lo, mb * bs + 1, size=B).astype(np.int32)
+    lens[0], lens[1] = lo, mb * bs
     perm = rng.permutation(n_pool)
     tables = np.full((B, mb), -1, np.int32)
     ptr = 0
@@ -380,10 +398,13 @@ _CASE_KEYS = ("shape", "ms", "kernel_only_ms", "plain_ms", "bound_ms",
 
 def phase_paged_attention(dev, flush):
     """K1 at the paged engine's shape (B=32, Hq=32, Hkv=8, hd=128, block
-    16, 16 blocks a row: the row's numbers) and at granite-34b's head
-    layout (Hq=48 over one KV head)."""
+    16, 16 blocks a row: the row's numbers), at granite-34b's head layout
+    (Hq=48 over one KV head) and at the vlm path's rows (B=8, lengths
+    2,944..3,008: 188 blocks, 47 of the kernel's 64-token splits)."""
     cases = [_paged_case(dev, flush, 32, 32, 8, 128, 16, 16, seed=2),
-             _paged_case(dev, flush, 32, 48, 1, 128, 16, 16, seed=4)]
+             _paged_case(dev, flush, 32, 48, 1, 128, 16, 16, seed=4),
+             _paged_case(dev, flush, 8, 32, 8, 128, 16, 188, seed=6,
+                         lo=2944)]
     _print_attention_cases("paged_decode_attention", cases)
     main = cases[0]
     return dict(name="paged_decode_attention", route="cuda",
@@ -794,8 +815,9 @@ def _decode_case(dev, flush, B, Hq, Hkv, hd, L, *, mode, window=0, seed):
 
 def phase_decode_attention(dev, flush):
     """K3 at granite-8b's slot shape (the row's numbers), zamba2's shape,
-    a rolling cache with lengths past L, a sliding window and granite-34b's
-    head layout (Hq=48 over one KV head)."""
+    a rolling cache with lengths past L, a sliding window, granite-34b's
+    head layout (Hq=48 over one KV head) and whisper-tiny's (Hq=Hkv=6,
+    hd=64)."""
     cases = [
         _decode_case(dev, flush, 32, 32, 8, 128, 256, mode="causal",
                      seed=21),
@@ -807,6 +829,8 @@ def phase_decode_attention(dev, flush):
                      window=96, seed=24),
         _decode_case(dev, flush, 32, 48, 1, 128, 256, mode="causal",
                      seed=25),
+        _decode_case(dev, flush, 32, 6, 6, 64, 256, mode="causal",
+                     seed=26),
     ]
     _print_attention_cases("decode_attention", cases)
     main = cases[0]
@@ -958,17 +982,71 @@ def phase_cross_device_slot(dev):
     return out
 
 
+def phase_cross_device_frontends(dev):
+    """The vlm and audio families on the CPU and on the card, same float32
+    weights and stream (12 requests over 8 slots; the engine's zero patch
+    and frame stubs): llava-next-mistral-7b-smoke on the paged and the
+    slot backend, whisper-tiny-smoke on the slot backend in vec and in
+    ref mode.  Stats and generations equal across devices, and the card's
+    audio vec engine equal to its ref engine in stats, generations and
+    workers."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_policy
+    from repro_torch.launch.serve import submit_requests
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    out = []
+    card = {}
+    for arch, backend, mode in (
+            ("llava-next-mistral-7b", "paged", "vec"),
+            ("llava-next-mistral-7b", "slot", "vec"),
+            ("whisper-tiny", "slot", "vec"),
+            ("whisper-tiny", "slot", "ref")):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        p_cpu = init_params(cfg, 0, device="cpu")
+        p_dev = _tree_to(p_cpu, dev)
+        ec = EngineConfig(n_workers=2, slots_per_worker=4, max_seq_len=256,
+                          cache_backend=backend, engine_mode=mode)
+        runs = []
+        for params, d in ((p_cpu, "cpu"), (p_dev, dev)):
+            eng = ServingEngine(cfg, params, ec, make_policy("bfio_h8"),
+                                device=d)
+            reqs = submit_requests(eng, 12, 8, seed=5)
+            stats = eng.run()
+            runs.append((stats, [r.generated for r in reqs],
+                         [r.worker for r in reqs]))
+        what = f"{cfg.name} {backend} engine_mode={mode}"
+        check(runs[0][0] == runs[1][0],
+              f"cross-device {what}: engine stats differ {runs[0][0]} vs "
+              f"{runs[1][0]}")
+        check(runs[0][1] == runs[1][1],
+              f"cross-device {what}: generations on the card differ from "
+              f"the CPU plain path")
+        card[(arch, backend, mode)] = runs[1]
+        out.append((what, runs[1][0]["tokens"]))
+    check(card[("whisper-tiny", "slot", "vec")]
+          == card[("whisper-tiny", "slot", "ref")],
+          "whisper-tiny-smoke on the card: the vec engine's stats, "
+          "generations or workers differ from the ref engine's")
+    return out
+
+
 def _stack_counts(cfg) -> dict:
     """Per-token kernel sites of one forward pass: attention applications
-    (K3 in decode), scan blocks (K5 in prefill) and RMS norms (K2)."""
+    (K3 in decode), scan blocks (K5 in prefill) and RMS norms (K2), with
+    audio's cross norm a decoder layer; ``enc_norm``: the audio encoder's
+    norms, which run once a prefill call."""
     from repro_torch.models import layer_pattern
-    n = {"attn": 0, "scan": 0, "norm": 1}          # final norm
+    n = {"attn": 0, "scan": 0, "norm": 1, "enc_norm": 0}   # final norm
     for _, kind, k in layer_pattern(cfg):
         n["norm"] += 2 * k
         if kind in ("attn", "shared_attn"):
             n["attn"] += k
         elif kind in ("mamba", "mlstm"):
             n["scan"] += k
+    if cfg.family == "audio":
+        n["norm"] += cfg.n_layers
+        n["enc_norm"] = 2 * cfg.encoder_layers + 1
     return n
 
 
@@ -1025,7 +1103,7 @@ def phase_slot_path(arch: str, n_requests: int,
     n_dec, n_pre = meas["decoded_steps"], prefills[0]
     sites = _stack_counts(cfg)
     check(n_dec > 0 and n_pre > 0, f"{what}: no decode or no prefill ran")
-    need = {"rms_norm": sites["norm"] * n_dec,
+    need = {"rms_norm": sites["norm"] * n_dec + sites["enc_norm"] * n_pre,
             "decode_attention": sites["attn"] * n_dec,
             "ssm_chunk_scan": sites["scan"] * n_pre}
     for name, lo in need.items():
@@ -1053,28 +1131,55 @@ def phase_slot_path(arch: str, n_requests: int,
     return launches
 
 
-def phase_paged_path(arch: str, what: str) -> dict:
+def _vlm_prompts(cfg, n: int, max_new: int, seed: int) -> list:
+    """The launcher's stream behind an image: each prompt is the image's
+    ``patch_tokens`` positions (placeholder id 0; the engine's zero patch
+    stub fills them) and then 4..63 random text tokens."""
+    from repro_torch.serving import ServeRequest
+    rng = np.random.default_rng(seed)
+    return [ServeRequest(rid=i, tokens=np.concatenate([
+        np.zeros(cfg.patch_tokens, np.int64),
+        rng.integers(1, cfg.vocab_size, size=int(rng.integers(4, 64)))]),
+        max_new_tokens=max_new) for i in range(n)]
+
+
+def phase_paged_path(arch: str, what: str, *, slots: int = 8,
+                     requests: int = 32, max_seq_len: int = 0) -> dict:
     """One full-width paged engine path through the launcher: ``arch`` at
     full depth in bf16 with seeded random weights, ``bfio_h8``, 4 workers
-    x 8 slots, 32 requests of 16 new tokens.  Counters zeroed just before
-    and read just after; K1 and K2 must run on every decode step.  Prints
-    init seconds, the peak device memory from the start of the path, the
-    mean decode-step ms and the launches; frees the engine and its
-    weights before it returns the launch counts."""
-    from repro_torch.launch.serve import build_parser, make_engine, serve
+    x ``slots`` slots, ``requests`` requests of 16 new tokens.  With
+    ``max_seq_len`` the launcher's ``EngineConfig`` takes that cache
+    length in place of its 256, and the stream puts an image in front of
+    each prompt (vlm: the launcher's 256 cannot hold the image).  Counters
+    zeroed just before and read just after; K1 and K2 must run on every
+    decode step.  Prints init seconds, the peak device memory from the
+    start of the path, the mean decode-step ms and the launches; frees
+    the engine and its weights before it returns the launch counts."""
+    from repro_torch.core import make_policy
+    from repro_torch.launch.serve import (_engine_cfg, build_parser,
+                                          make_model, serve)
+    from repro_torch.serving import ServingEngine
     args = build_parser().parse_args(
         ["--arch", arch, "--policy", "bfio_h8", "--cache-backend",
-         "paged", "--workers", "4", "--slots", "8", "--requests", "32",
-         "--max-new", "16", "--seed", "0"])
+         "paged", "--workers", "4", "--slots", str(slots), "--requests",
+         str(requests), "--max-new", "16", "--seed", "0"])
     _free()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = make_engine(args)
+    cfg, params, device = make_model(args)
+    ec = _engine_cfg(args)
+    if max_seq_len:
+        ec = dataclasses.replace(ec, max_seq_len=max_seq_len)
+    eng = ServingEngine(cfg, params, ec, make_policy(args.policy),
+                        device=device)
+    del params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
+    prompts = (_vlm_prompts(cfg, args.requests, args.max_new, args.seed)
+               if max_seq_len else None)
     launches = _zero_and_read(None)
-    out = serve(args, eng)
+    out = serve(args, eng, requests=prompts)
     launches = _zero_and_read(launches)
     stats, meas, reqs = out["stats"], out["measured"], out["requests"]
     cfg = eng.cfg
@@ -1099,11 +1204,15 @@ def phase_paged_path(arch: str, what: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 1e9
     moe = (f", {cfg.n_experts} experts top-{cfg.experts_per_token} of "
            f"width {cfg.moe_d_ff}" if cfg.is_moe else "")
+    rows = (f", prompts of {min(len(r.tokens) for r in reqs)}.."
+            f"{max(len(r.tokens) for r in reqs)} tokens at max_seq_len "
+            f"{eng.ec.max_seq_len}" if max_seq_len else "")
     print(f"{what}: {cfg.name} ({L} layers, d={cfg.d_model}{moe}, "
-          f"{cfg.dtype}, {cfg.n_params() / 1e9:.2f} B parameters), init "
+          f"{cfg.dtype}, {_numel(eng.params) / 1e9:.2f} B parameters), init "
           f"{init_s:.2f} s, {weights_gb:.2f} GB on the card after init; "
-          f"{len(reqs)} requests, {stats['tokens']} tokens, {meas['steps']} "
-          f"steps ({n_dec} with decode); launches {launches}")
+          f"{len(reqs)} requests over {eng.G} x {eng.B} slots{rows}, "
+          f"{stats['tokens']} tokens, {meas['steps']} steps ({n_dec} with "
+          f"decode); launches {launches}")
     print(f"{what} MEASURED on {meas['device']}: wall "
           f"{meas['wall_s']:.3f} s, decode step {meas['decode_step_ms']:.2f}"
           f" ms (mean of {meas['decode_phase_steps']} decode-only steps), "
@@ -1461,6 +1570,12 @@ def _zero_and_read(before):
     return {name: w.launches for name, w in ws.items()}
 
 
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    return tree.numel()
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -1529,6 +1644,11 @@ def main() -> None:
               f"sizes, {what}: {steps} steps, imbalance {imb:.1f}, {pre} "
               f"preemptions; every LoopState field equal on cpu and the "
               f"card")
+    for what, toks in phase_cross_device_frontends(dev):
+        print(f"cross-device frontends: {what} f32, {toks} tokens; stats "
+              f"and generations equal on cpu and the card")
+    print("cross-device frontends: whisper-tiny-smoke vec == ref on the "
+          "card (stats, generations, workers)")
     for name, toks in phase_cross_device_ref(dev):
         print(f"cross-device ref: {name} f32 on the slot backend, "
               f"engine_mode=ref, {toks} tokens; stats and generations equal "
@@ -1544,10 +1664,13 @@ def main() -> None:
 
     paths = {"engine": phase_paged_path("granite-8b", "main path")}
     paths["moe"] = phase_paged_path("qwen3-moe-30b-a3b", "moe path")
+    paths["vlm"] = phase_paged_path("llava-next-mistral-7b", "vlm path",
+                                    slots=2, requests=16, max_seq_len=3072)
     paths.update({"fleet": phase_fleet_path(),
                   "slot_granite": phase_slot_path("granite-8b", 32),
                   "slot_zamba2": phase_slot_path("zamba2-1.2b", 32),
                   "slot_xlstm": phase_slot_path("xlstm-350m", 8),
+                  "slot_whisper": phase_slot_path("whisper-tiny", 32),
                   "slot_granite_ref": phase_slot_path("granite-8b", 32,
                                                       engine_mode="ref"),
                   "device_loop": phase_device_loop_path()})

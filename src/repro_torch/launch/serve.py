@@ -196,14 +196,20 @@ def _device_name(device: torch.device) -> str:
             else "cpu")
 
 
-def serve(args, eng: ServingEngine = None, max_steps: int = 10_000) -> dict:
-    """Build (unless given) and run one engine over the synthetic stream.
-    Returns the engine, its requests, the modelled ``stats`` and the
-    measured wall-clock numbers (host clock around each step, which ends
-    in a device sync); ``decode_step_ms`` averages the steps whose only
-    work was decode."""
+def serve(args, eng: ServingEngine = None, max_steps: int = 10_000,
+          requests: list = None) -> dict:
+    """Build (unless given) and run one engine over ``requests`` (default:
+    the synthetic stream).  Returns the engine, its requests, the modelled
+    ``stats`` and the measured wall-clock numbers (host clock around each
+    step, which ends in a device sync); ``decode_step_ms`` averages the
+    steps whose only work was decode."""
     eng = eng or make_engine(args)
-    reqs = submit_requests(eng, args.requests, args.max_new, args.seed)
+    if requests is None:
+        reqs = submit_requests(eng, args.requests, args.max_new, args.seed)
+    else:
+        reqs = list(requests)
+        for r in reqs:
+            eng.submit(r)
     cuda = eng.device.type == "cuda"
     step_s, decode_s = [], []
     decoded_steps = 0      # steps that ran one paged decode call

@@ -1,7 +1,7 @@
 """Model substrate: layers, attention, the recurrent cores (``ssm``) and
-the model assembly for the dense, moe, ssm and hybrid families (init /
-prefill / decode / chunked prefill / paged decode), the MoE FFN
-(``moe``), plus the weight bridge from the reference package."""
+the model assembly for all six families, dense, moe, ssm, hybrid, vlm and
+audio (init / prefill / decode / chunked prefill / paged decode), the MoE
+FFN (``moe``), plus the weight bridge from the reference package."""
 from .bridge import params_from_numpy  # noqa: F401
 from .transformer import (  # noqa: F401
     chunk_prefill_fn,

@@ -1,5 +1,6 @@
 """Attention as plain PyTorch: causal prefill, mid-prefill chunk
-attention, and cached one-token decode with ragged lengths.
+attention, non-causal cross attention, and cached one-token decode with
+ragged lengths.
 
 All paths are GQA-native: queries are shaped (B, S, Hkv, G, hd) inside
 the einsums so K/V are never expanded to Hq width.  The reference runs
@@ -21,7 +22,8 @@ import torch
 
 from ..kernels import ops
 
-__all__ = ["causal_attention", "chunk_attention", "decode_attention"]
+__all__ = ["causal_attention", "chunk_attention", "cross_attention",
+           "decode_attention"]
 
 _NEG = -1e30
 
@@ -84,6 +86,29 @@ def chunk_attention(q, k_cache, v_cache, *, q_pos, kv_len):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgql,blhd->bhgqd", p, v_cache.float())
     out = out.permute(0, 3, 1, 2, 4).reshape(b, c, hq, hd)
+    return out.to(q.dtype)
+
+
+def cross_attention(q, k, v, *, lengths: Optional[torch.Tensor] = None):
+    """Non-causal attention over a fixed encoder sequence (the audio
+    family's encoder self-attention and the decoder's cross attention).
+
+    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd); lengths: (B,) valid
+    encoder positions, or None for all.  Unlike the causal and decode
+    paths, the reference keeps the pre-scaled query, the scores and the
+    probabilities in float32 here, and masks with ``where`` rather than an
+    additive bias.  Returns (B, Sq, Hq, hd) in q's dtype."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qf = _group_q(q, hkv).float() * _scale(hd, q.device)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    if lengths is not None:
+        mask = (torch.arange(skv, device=q.device)[None, :]
+                < lengths.long()[:, None])
+        s = s.masked_fill(~mask[:, None, None, None, :], _NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd)
     return out.to(q.dtype)
 
 

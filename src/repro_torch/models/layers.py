@@ -19,6 +19,7 @@ from ..kernels import ops
 __all__ = [
     "rms_norm",
     "add_rms_norm",
+    "layer_norm",
     "make_rope",
     "apply_rope",
     "dense_init",
@@ -26,6 +27,7 @@ __all__ = [
     "norm_init",
     "linear",
     "swiglu",
+    "gelu_mlp",
 ]
 
 
@@ -75,6 +77,17 @@ def add_rms_norm(x, r, scale, eps: float = 1e-5):
     return ops.add_rms_norm(x, r, scale, eps)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm in fp32 (population variance), cast back to x's dtype.
+    Plain PyTorch: the reference has no kernel for it, and no model path
+    calls it."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
 def make_rope(positions, head_dim: int, theta: float = 1e4):
     """Rotary embedding tables for integer positions: (..., hd/2) sin/cos."""
     half = head_dim // 2
@@ -116,3 +129,10 @@ def linear(x, w, b=None):
 def swiglu(x, w_in, w_gate, w_out):
     """SwiGLU MLP: (silu(x@w_gate) * (x@w_in)) @ w_out."""
     return linear(F.silu(linear(x, w_gate)) * linear(x, w_in), w_out)
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    """Classic GELU MLP (Whisper-style), the tanh GELU as the reference's
+    ``jax.nn.gelu``.  No model path calls it."""
+    return linear(F.gelu(linear(x, w_in, b_in), approximate="tanh"), w_out,
+                  b_out)

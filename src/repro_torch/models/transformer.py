@@ -1,16 +1,22 @@
 """Model assembly: parameter init, prefill, decode, chunked prefill and
-paged decode for the dense decoder, the MoE decoder (the dense stack with
-a top-k routed expert FFN, :mod:`repro_torch.models.moe`) and the
-recurrent families (ssm: xLSTM's mLSTM/sLSTM stack; hybrid: Zamba2's
-Mamba2 stack with one shared attention block).
+paged decode for all six families: the dense decoder, the MoE decoder
+(the dense stack with a top-k routed expert FFN,
+:mod:`repro_torch.models.moe`), the recurrent families (ssm: xLSTM's
+mLSTM/sLSTM stack; hybrid: Zamba2's Mamba2 stack with one shared
+attention block), vlm (the dense decoder with projected image-patch
+embeddings spliced over the prompt's first ``patch_tokens`` positions)
+and audio (a Whisper-style encoder over frame embeddings and the dense
+decoder with one cross attention a layer).  The vision tower and the
+audio front end are stubs, as in the reference: the caller passes
+``patches`` and ``frames`` embeddings.
 
 Parameters keep the reference's stacked per-group layout: each group of
 :func:`layer_pattern` holds its blocks' weights on a leading axis and the
 layer loop slices it (the reference scans it); zamba2's shared attention
 block is one unstacked ``params["shared_attn"]`` applied after every group
-of Mamba2 blocks, each application with its own cache (``shared0`` ...).
-The vlm and audio families raise ``NotImplementedError`` naming their
-ROADMAP item.
+of Mamba2 blocks, each application with its own cache (``shared0`` ...);
+audio adds ``enc_blocks``, ``enc_pos``, ``enc_norm`` and the stacked
+``cross_blocks``, vlm the ``projector`` MLP.
 
 Every block hands its residual branch's output to the next norm instead
 of adding it itself: a block takes ``(x, r)`` and returns ``(x', r')``,
@@ -57,13 +63,6 @@ __all__ = ["init_params", "init_cache", "layer_pattern",
            "chunk_prefill_fn", "paged_decode_fn", "paged_chunk_prefill_fn",
            "resolve_device", "torch_dtype"]
 
-_PORTED = ("dense", "moe", "ssm", "hybrid")
-_TODO = {
-    "vlm": "ROADMAP Queue A item 10 (remaining model families: vlm)",
-    "audio": "ROADMAP Queue A item 10 (remaining model families: audio)",
-}
-
-
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller asks for something else; a request for
     CUDA without a card raises instead of running on the CPU."""
@@ -82,21 +81,14 @@ def torch_dtype(name) -> torch.dtype:
             "float16": torch.float16}[str(name)]
 
 
-def _require_ported(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"{what}: the {cfg.family!r} family is not ported yet — "
-            f"{_TODO.get(cfg.family, 'ROADMAP Queue A item 10')}")
-
-
 # ==========================================================================
 # Parameter initialization
 # ==========================================================================
 
 def layer_pattern(cfg: ModelConfig) -> list[tuple[str, str, int]]:
-    """The decoder stack as homogeneous groups (group, kind, n_blocks)."""
-    _require_ported(cfg, "layer_pattern")
-    if cfg.family in ("dense", "moe"):
+    """The decoder stack as homogeneous groups (group, kind, n_blocks);
+    audio's encoder is not part of it."""
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         return [("blocks", "attn", cfg.n_layers)]
     if cfg.family == "ssm":
         # xLSTM [7:1]: every cfg.slstm_every-th block is sLSTM
@@ -115,6 +107,8 @@ def layer_pattern(cfg: ModelConfig) -> list[tuple[str, str, int]]:
         if run:
             out.append((f"m{gi}", "mlstm", run))
         return out
+    if cfg.family != "hybrid":
+        raise ValueError(cfg.family)
     # hybrid (Zamba2): groups of attn_every mamba blocks + 1 *shared* attn
     n_groups = cfg.n_layers // (cfg.attn_every + 1)
     rest = cfg.n_layers - n_groups * (cfg.attn_every + 1)
@@ -150,9 +144,10 @@ def _ones(n: int, dim: int, device) -> torch.Tensor:
     return norm_init(dim, device=device).repeat(n, 1)
 
 
-def _attn_block_init(cfg: ModelConfig, n: int, kw) -> dict:
-    d, hq, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                         cfg.d_ff)
+def _attn_init(cfg: ModelConfig, n: int, kw) -> dict:
+    """n stacked attention weight sets: wq/wk/wv (d, heads, hd), wo (Hq,
+    hd, d) and, with ``qkv_bias``, zero biases."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dev, dtype = kw["device"], kw["dtype"]
     attn = {
         "wq": _stacked(n, (d, hq, hd), **kw),
@@ -164,14 +159,24 @@ def _attn_block_init(cfg: ModelConfig, n: int, kw) -> dict:
         attn["bq"] = torch.zeros((n, hq, hd), dtype=dtype, device=dev)
         attn["bk"] = torch.zeros((n, hkv, hd), dtype=dtype, device=dev)
         attn["bv"] = torch.zeros((n, hkv, hd), dtype=dtype, device=dev)
-    if cfg.is_moe:
-        ffn = _moe_init(cfg, n, kw)
-    else:
-        ffn = {"w_in": _stacked(n, (d, f), **kw),
-               "w_out": _stacked(n, (f, d), **kw)}
-        if cfg.mlp_variant == "swiglu":
-            ffn["w_gate"] = _stacked(n, (d, f), **kw)
-    return {"norm1": _ones(n, d, dev), "attn": attn,
+    return attn
+
+
+def _mlp_init(cfg: ModelConfig, n: int, kw) -> dict:
+    """n stacked dense MLPs: w_in (d, f), w_out (f, d), and w_gate (d, f)
+    for SwiGLU."""
+    d, f = cfg.d_model, cfg.d_ff
+    ffn = {"w_in": _stacked(n, (d, f), **kw),
+           "w_out": _stacked(n, (f, d), **kw)}
+    if cfg.mlp_variant == "swiglu":
+        ffn["w_gate"] = _stacked(n, (d, f), **kw)
+    return ffn
+
+
+def _attn_block_init(cfg: ModelConfig, n: int, kw) -> dict:
+    d, dev = cfg.d_model, kw["device"]
+    ffn = _moe_init(cfg, n, kw) if cfg.is_moe else _mlp_init(cfg, n, kw)
+    return {"norm1": _ones(n, d, dev), "attn": _attn_init(cfg, n, kw),
             "norm2": _ones(n, d, dev), "ffn": ffn}
 
 
@@ -247,8 +252,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     compared bit for bit with the reference's init; the tests carry the
     reference's weights over with :mod:`repro_torch.models.bridge`), in
     the reference's tree: one stacked dict per group of
-    :func:`layer_pattern`, ``shared_attn`` unstacked."""
-    _require_ported(cfg, "init_params")
+    :func:`layer_pattern`, ``shared_attn`` unstacked; audio's encoder
+    (``enc_blocks``, ``enc_pos`` (encoder_seq, d) at scale 0.01,
+    ``enc_norm``) and ``cross_blocks`` ({norm, attn} per decoder layer,
+    stacked); vlm's unstacked ``projector`` MLP."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev)
@@ -269,6 +276,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
         params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size),
                                        generator=gen, device=dev,
                                        dtype=dtype)
+    if cfg.family == "audio":
+        d = cfg.d_model
+        params["enc_blocks"] = _attn_block_init(cfg, cfg.encoder_layers, kw)
+        params["enc_pos"] = _normal(1, (cfg.encoder_seq, d), 0.01, **kw)[0]
+        params["enc_norm"] = norm_init(d, device=dev)
+        params["cross_blocks"] = {"norm": _ones(cfg.n_layers, d, dev),
+                                  "attn": _attn_init(cfg, cfg.n_layers, kw)}
+    if cfg.family == "vlm":
+        params["projector"] = _slice(_mlp_init(cfg, 1, kw), 0)
     return params
 
 
@@ -307,8 +323,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     :func:`layer_pattern`, its blocks' caches stacked on a leading axis —
     k/v (n, batch, L, Hkv, hd) for attention (L = min(max_len, window)
     with a sliding window), conv/state for Mamba2 and mLSTM, the
-    (h, c, n, m) tuple for sLSTM (m starts at -1e30)."""
-    _require_ported(cfg, "init_cache")
+    (h, c, n, m) tuple for sLSTM (m starts at -1e30).  Audio adds the
+    cross-attention KV that prefill computes, ``cross_kv`` k and v
+    (layers, batch, encoder_seq, Hkv, hd), and ``enc_lengths`` (batch,)
+    int32 at ``encoder_seq``.  The reference binds one zeros array to both
+    k and v; here they are separate tensors, because the slot backend
+    installs prefill rows into them in place."""
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     cache: dict = {"lengths": torch.zeros((batch,), dtype=torch.int32,
@@ -316,6 +336,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     for gname, kind, n in layer_pattern(cfg):
         cache[gname] = _empty_cache_block(cfg, kind, n, batch, max_len,
                                           dtype, dev)
+    if cfg.family == "audio":
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                 cfg.hd)
+        cache["cross_kv"] = {
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        cache["enc_lengths"] = torch.full((batch,), cfg.encoder_seq,
+                                          dtype=torch.int32, device=dev)
     return cache
 
 
@@ -359,14 +387,18 @@ def _chunk_qkv(cfg: ModelConfig, p, xx, r, sin, cos):
     return xx, q, k, v
 
 
+def _out_proj(cfg: ModelConfig, ap, o):
+    """Attention output (..., Hq, hd) through ``wo`` to (..., d)."""
+    return linear(o.reshape(o.shape[:-2] + (-1,)),
+                  ap["wo"].reshape(-1, cfg.d_model))
+
+
 def _chunk_finish(cfg: ModelConfig, p, xx, o):
     """Post-attention half: output projection, its residual added in norm2,
     FFN.  Returns (residual stream, FFN output): the next norm adds the
     second."""
-    ap = p["attn"]
-    a = linear(o.reshape(o.shape[:-2] + (-1,)),
-               ap["wo"].reshape(-1, cfg.d_model))
-    xx, h2 = add_rms_norm(xx, a, p["norm2"], cfg.norm_eps)
+    xx, h2 = add_rms_norm(xx, _out_proj(cfg, p["attn"], o), p["norm2"],
+                          cfg.norm_eps)
     return xx, _mlp_forward(cfg, p["ffn"], h2)
 
 
@@ -383,12 +415,18 @@ def _write_rows(buf, pos, new):
 
 
 def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
-                  lengths, rolling: bool = False):
+                  lengths, rolling: bool = False, cross=None):
     """Self-attention block (+ FFN).  ``decode`` writes the new token's KV
     at ``lengths - 1`` (taken ``% L`` on a rolling cache) into ``cache`` in
     place and attends through :func:`attention.decode_attention` (kernel
     K3 on a CUDA tensor); ``prefill`` attends causally and fills the cache
-    rows' first S positions."""
+    rows' first S positions.
+
+    ``cross`` (audio): (this layer's ``cross_blocks`` entry, its cross KV
+    {k, v} (B, S_enc, Hkv, hd), ``enc_lengths``).  Between the
+    self-attention and the FFN the block then runs cross attention: the
+    self-attention output is added in the cross norm, the query takes no
+    rope, and the cross output is added in norm2."""
     x, q, k, v = _chunk_qkv(cfg, p, x, r, sin, cos)
     if mode == "decode":
         kc, vc = cache["k"], cache["v"]
@@ -411,6 +449,14 @@ def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
                                  f"KV cache of length {L}")
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
+    if cross is not None:
+        cp, ckv, enc_lengths = cross
+        x, hc = add_rms_norm(x, _out_proj(cfg, p["attn"], o), cp["norm"],
+                             cfg.norm_eps)
+        qc = linear(hc, cp["attn"]["wq"], cp["attn"].get("bq"))
+        o = attn_lib.cross_attention(qc, ckv["k"], ckv["v"],
+                                     lengths=enc_lengths)
+        p = dict(p, attn=cp["attn"])      # the cross wo projects o below
     return _chunk_finish(cfg, p, x, o)
 
 
@@ -562,9 +608,11 @@ def _run_stack(cfg: ModelConfig, params, x, *, mode: str, cache,
                common: dict):
     """Every block of every group in order; each block reads and writes
     its own slice of ``cache`` (the shared attention block: one cache per
-    application).  Returns (residual stream, the last block's branch
-    output), which :func:`_lm_logits` adds."""
+    application; audio's decoder layer i also reads ``cross_blocks[i]``
+    and ``cache["cross_kv"][i]``).  Returns (residual stream, the last
+    block's branch output), which :func:`_lm_logits` adds."""
     r = None
+    audio = cfg.family == "audio"
     for gname, kind, n in layer_pattern(cfg):
         gcache = cache.get(gname) if cache is not None else None
         if kind == "shared_attn":
@@ -575,8 +623,13 @@ def _run_stack(cfg: ModelConfig, params, x, *, mode: str, cache,
         gp = params[gname]
         for i in range(n):
             c = _slice(gcache, i) if gcache is not None else None
+            kw = common
+            if audio:
+                kw = dict(common, cross=(
+                    _slice(params["cross_blocks"], i),
+                    _slice(cache["cross_kv"], i), cache["enc_lengths"]))
             x, r = _block_forward(cfg, kind, _slice(gp, i), x, r, mode=mode,
-                                  cache=c, common=common)
+                                  cache=c, common=kw)
     return x, r
 
 
@@ -595,6 +648,52 @@ def _last(x, lens, S):
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
+def _encode_audio(cfg: ModelConfig, params, frames):
+    """Whisper-style encoder over precomputed frame embeddings (the stub
+    front end): frames (B, S_enc, d) -> (B, S_enc, d).  Each layer: norm1,
+    bidirectional :func:`attention.cross_attention` over every position,
+    the residual, norm2, the FFN, the residual; then ``enc_norm``.  The
+    learned ``enc_pos`` is the only position signal: the reference builds
+    rope tables here and applies none."""
+    x = frames.to(params["enc_pos"].dtype) + params["enc_pos"][None]
+    r = None
+    for i in range(cfg.encoder_layers):
+        p = _slice(params["enc_blocks"], i)
+        x, h = add_rms_norm(x, r, p["norm1"], cfg.norm_eps)
+        ap = p["attn"]
+        q = linear(h, ap["wq"], ap.get("bq"))
+        k = linear(h, ap["wk"], ap.get("bk"))
+        v = linear(h, ap["wv"], ap.get("bv"))
+        x, r = _chunk_finish(cfg, p, x, attn_lib.cross_attention(q, k, v))
+    return add_rms_norm(x, r, params["enc_norm"], cfg.norm_eps)[1]
+
+
+def _cross_kv_from_encoder(cfg: ModelConfig, params, enc_out, cross_kv):
+    """Every decoder layer's cross K/V of the encoder output, written into
+    ``cross_kv`` {"k", "v"} of shape (layers, B, S_enc, Hkv, hd) in place;
+    returns it."""
+    for i in range(cfg.n_layers):
+        ap = _slice(params["cross_blocks"]["attn"], i)
+        cross_kv["k"][i] = linear(enc_out, ap["wk"], ap.get("bk"))
+        cross_kv["v"][i] = linear(enc_out, ap["wv"], ap.get("bv"))
+    return cross_kv
+
+
+def _prepare_inputs(cfg: ModelConfig, params, batch):
+    """Embed the tokens; for vlm with ``patches`` (B, npt, d), put the
+    projector MLP's output in place of the first npt positions."""
+    x = params["embed"][batch["tokens"].long()]
+    if cfg.family == "vlm" and "patches" in batch:
+        proj = _mlp_forward(cfg, params["projector"], batch["patches"])
+        npt, S = proj.shape[1], x.shape[1]
+        if S < npt:
+            # the reference fails here with a broadcasting error
+            raise ValueError(f"vlm prefill of {S} positions cannot hold the "
+                             f"{npt} image-patch positions it splices in")
+        x[:, :npt] = proj.to(x.dtype)
+    return x
+
+
 # ==========================================================================
 # Model-level API
 # ==========================================================================
@@ -602,9 +701,11 @@ def _last(x, lens, S):
 def prefill_fn(cfg: ModelConfig, params, batch, *, max_len: int):
     """Prefill: run the prompt, build the decode cache.
 
-    batch: tokens (B, S), lengths (B,) true prompt lengths; returns
-    (last_logits (B, V), cache) with the :func:`init_cache` layout."""
-    _require_ported(cfg, "prefill_fn")
+    batch: tokens (B, S), lengths (B,) true prompt lengths, plus
+    ``patches`` (B, patch_tokens, d) for vlm (optional, as in the
+    reference) or ``frames`` (B, encoder_seq, d) for audio, whose encoder
+    runs here and fills the cache's ``cross_kv``; returns (last_logits
+    (B, V), cache) with the :func:`init_cache` layout."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
@@ -612,10 +713,14 @@ def prefill_fn(cfg: ModelConfig, params, batch, *, max_len: int):
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
     lengths = lengths.to(torch.int32)
-    x = params["embed"][tokens.long()]
+    x = _prepare_inputs(cfg, params, batch)
     sin, cos = make_rope(torch.arange(S, device=dev), cfg.hd,
                          cfg.rope_theta)
     cache = init_cache(cfg, B, max_len, device=dev)
+    if cfg.family == "audio":
+        _cross_kv_from_encoder(cfg, params,
+                               _encode_audio(cfg, params, batch["frames"]),
+                               cache["cross_kv"])
     x, r = _run_stack(cfg, params, x, mode="prefill", cache=cache,
                       common=dict(sin=sin[None], cos=cos[None],
                                   lengths=lengths))
@@ -630,8 +735,8 @@ def decode_fn(cfg: ModelConfig, params, cache, tokens):
     ``cache`` (the :func:`init_cache` layout, ``lengths`` counting the
     tokens so far) is updated IN PLACE: the new KV at ``lengths`` (rolling
     ``% L`` with a sliding window), every recurrent state, and ``lengths``
-    + 1.  Returns (logits (B, V), cache)."""
-    _require_ported(cfg, "decode_fn")
+    + 1; audio reads its ``cross_kv`` and ``enc_lengths``.  Returns
+    (logits (B, V), cache)."""
     lengths = cache["lengths"] + 1
     x = params["embed"][tokens.long()[:, None]]
     pos = lengths.long() - 1
@@ -645,9 +750,10 @@ def decode_fn(cfg: ModelConfig, params, cache, tokens):
 
 def supports_paged_stack(cfg: ModelConfig) -> bool:
     """True iff the decoder is a single homogeneous attention stack whose
-    KV cache is pure (k, v) pairs (reference semantics: dense/moe/vlm
-    without a sliding window).  Of these the port runs dense and moe so
-    far; vlm raises naming its ROADMAP item."""
+    KV cache is pure (k, v) pairs: dense, moe and vlm without a sliding
+    window, as in the reference.  The chunked and paged entry points embed
+    tokens only, so vlm runs there as the dense decoder it is; the engine
+    still refuses chunked prefill for vlm, whose prompt takes patches."""
     return (cfg.family in ("dense", "moe", "vlm")
             and not cfg.sliding_window)
 
@@ -658,7 +764,6 @@ def _require_paged_stack(cfg: ModelConfig, what: str) -> None:
             f"{what} supports only attention-family models without a "
             f"sliding window (dense/moe/vlm), got family={cfg.family!r} "
             f"sliding_window={cfg.sliding_window}")
-    _require_ported(cfg, what)
 
 
 def chunk_prefill_fn(cfg: ModelConfig, params, cache, tokens, offsets,

@@ -57,7 +57,12 @@ from ..core.energy import A100_POWER, PowerModel
 from ..core.metrics import step_imbalance
 from ..core.policies import Policy, SchedulerContext
 from ..core.workload import DriftModel, drift_for_family
-from ..models import prefill_fn, resolve_device, supports_paged_stack
+from ..models import (
+    prefill_fn,
+    resolve_device,
+    supports_paged_stack,
+    torch_dtype,
+)
 from ..obs.trace import NULL_RECORDER
 from .cache_backend import make_cache_backend
 from .preemption import (
@@ -886,6 +891,17 @@ class ServingEngine:
             lens[i] = L
         batch = {"tokens": torch.from_numpy(toks).to(self.device),
                  "lengths": torch.from_numpy(lens).to(self.device)}
+        # the stub front ends: zero patch / frame embeddings, as in the
+        # reference engine
+        dt = torch_dtype(self.cfg.dtype)
+        if self.cfg.family == "vlm":
+            batch["patches"] = torch.zeros(
+                (nbp, self.cfg.patch_tokens, self.cfg.d_model), dtype=dt,
+                device=self.device)
+        if self.cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (nbp, self.cfg.encoder_seq, self.cfg.d_model), dtype=dt,
+                device=self.device)
         logits, mini_cache = prefill_fn(self.cfg, self.params, batch,
                                         max_len=ec.max_seq_len)
         first = logits.argmax(-1).to(torch.int32).cpu().numpy()

@@ -18,10 +18,6 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 # reference package -> {name: why the port does not bind it yet}
 NOT_YET = {
-    "configs": dict.fromkeys(
-        ["InputShape", "LONG_CONTEXT_WINDOW", "SHAPES", "config_for_shape",
-         "get_shape", "input_specs"],
-        "ROADMAP Queue A item 4 (configs/shapes.py)"),
     "kernels": {
         "on_tpu": "TPU-only; the port's dispatch is ops.on_cuda",
         "swap_best_pallas": "TPU kernel; the port's is bfio_swap.swap_best",

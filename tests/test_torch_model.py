@@ -309,21 +309,37 @@ def test_init_cache_shape(models):
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "xlstm-350m",
                                   "zamba2-1.2b", "whisper-tiny"])
 def test_unported_families_raise(arch):
-    """vlm and audio are not ported and raise naming their ROADMAP item
-    (MoE is ported: tests/test_torch_moe.py).  The ssm and hybrid families
-    are ported with the slot backend (held against the reference in
-    tests/test_torch_ssm.py) and keep the reference's limit: no chunked or
-    paged path."""
+    """Every family is ported.  vlm pages as the dense decoder it is (the
+    paged and chunked entry points embed tokens only, as in the
+    reference; tests/test_torch_vlm.py holds them against it).  The ssm,
+    hybrid and audio families keep the reference's limit: no chunked or
+    paged path (tests/test_torch_ssm.py, tests/test_torch_audio.py)."""
     cfg = get_smoke_config(arch)
-    if cfg.family in ("ssm", "hybrid"):
-        params = init_params(cfg, 0, device="cpu")
+    params = init_params(cfg, 0, device="cpu")
+    if cfg.family in ("ssm", "hybrid", "audio"):
         with pytest.raises(ValueError, match="attention-family"):
             chunk_prefill_fn(cfg, params, None, None, None, None)
         with pytest.raises(ValueError, match="attention-family"):
             paged_decode_fn(cfg, params, *([None] * 7), block_size=8)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, 0, device="cpu")
+    n, mb = 2, MAX_LEN // BS
+    pool = torch.zeros((cfg.n_layers, n * mb, BS, cfg.n_kv_heads, cfg.hd),
+                       dtype=torch.bfloat16)
+    tables = torch.arange(n * mb, dtype=torch.int32).reshape(n, mb)
+    nxt, kp, _ = paged_decode_fn(
+        cfg, params, pool, pool.clone(), tables,
+        torch.tensor([1, 5], dtype=torch.int32),
+        torch.tensor([0, mb], dtype=torch.int32),
+        torch.tensor([0, 4], dtype=torch.int32),
+        torch.tensor([3, 7], dtype=torch.int32), block_size=BS)
+    assert nxt.shape == (n,) and kp[:, 0, 0].abs().sum() > 0
+    cache = init_cache(cfg, n, MAX_LEN, device="cpu")
+    logits, cache = chunk_prefill_fn(
+        cfg, params, cache, torch.ones((n, 4), dtype=torch.int32),
+        torch.zeros(n, dtype=torch.int32),
+        torch.tensor([4, 2], dtype=torch.int32))
+    assert logits.shape == (n, cfg.vocab_size)
+    assert cache["lengths"].tolist() == [4, 2]
 
 
 def test_cuda_default_raises_without_a_card():

@@ -215,17 +215,19 @@ def test_allocator_and_prefix_index_sequences_equal(evict):
 
 
 def test_unported_paths_raise(weights):
-    """The slot backend is ported (tests/test_torch_slot.py); an unported
-    family on it (vlm; MoE is ported, tests/test_torch_moe.py) still
-    raises naming its ROADMAP item.  The per-slot ``engine_mode="ref"``
-    is ported (tests/test_torch_engine_ref.py) and, as in the reference,
-    refuses the paged backend with a ``ValueError``."""
+    """Every family is ported: a vlm slot backend builds (vlm's engine
+    parity is in tests/test_torch_vlm.py).  The per-slot
+    ``engine_mode="ref"`` is ported (tests/test_torch_engine_ref.py) and,
+    as in the reference, refuses the paged backend with a
+    ``ValueError``."""
     _, _, tparams, _ = weights
     vlm = ModelConfig(**dict(TINY, name="tiny-vlm", family="vlm",
                              patch_tokens=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_cache_backend("slot", vlm, tparams,
-                           EngineConfig(cache_backend="slot"), "cpu")
+    be = make_cache_backend("slot", vlm, tparams,
+                            EngineConfig(cache_backend="slot"), "cpu")
+    assert be.name == "slot"
+    assert tuple(be.cache["blocks"]["k"].shape[:2]) == (
+        vlm.n_layers, be.N)
     with pytest.raises(ValueError, match="seed oracle"):
         ServingEngine(CFG, tparams, EngineConfig(engine_mode="ref",
                                                  cache_backend="paged"),
