@@ -14,7 +14,12 @@ result line):
    widths 6144, 8192 and 384, each plain and with the residual add fused (its
    sum PyTorch's, its norm bit-identical to the kernel's norm of that
    sum), also timed back to back from a CUDA graph, beside ``F.rms_norm``
-   (after ``x + r`` for the fused call); the paged decode-attention kernel
+   (after ``x + r`` for the fused call); K2's backward (``rms_norm_bwd``)
+   at the train path's (8192, 4096) in bf16, plain and fused (the
+   gradient of the sum added), and in float32, and at (32, 4096), against
+   its plain version (dx at 2e-2, dscale within 1e-3 of its largest entry,
+   the same bits on a second call), timed beside its byte bound and
+   autograd's backward of ``F.rms_norm``; the paged decode-attention kernel
    (K1) at B=32, Hq=32, Hkv=8, hd=128, block 16, 16 blocks per row (bf16
    pool, permuted tables, ragged lengths including 1 and 256), at
    granite-34b's head layout (Hq=48 over one KV head) and at the vlm
@@ -76,7 +81,13 @@ result line):
    (K4).  The per-slot reference engine (``engine_mode="ref"``):
    granite-8b-smoke and zamba2-1.2b-smoke on the slot backend, stats and
    generations equal on the CPU and the card, and the card's ref engine
-   equal to its vec engine in stats, generations and workers.
+   equal to its vec engine in stats, generations and workers.  Training
+   (granite-8b-smoke, float32 weights and compute): one step's gradients
+   on the CPU and the card within 1e-4, five steps of ``train`` with the
+   same batches (loss histories within 1e-5 relative, parameters within
+   1e-4), the CPU's checkpoint after four steps resumed on the card to the
+   CPU's fifth loss, and ``python -m repro_torch.launch.train --arch
+   granite-8b --smoke --steps 4`` on the card.
 5. The single-engine path: ``repro_torch.launch.serve`` on full
    granite-8b (36 layers, bf16, seeded random weights), paged backend,
    bfio_h8, 4 workers x 8 slots, 32 requests of 16 new tokens.  Launch
@@ -122,10 +133,19 @@ result line):
    step, and PyTorch's sync debug mode sees no host read inside a step
    (it is shown to see a known one first).  Prints the mean ms a step,
    the device kernels of one profiled step and the average imbalance.
+9. The train path: ``repro_torch.training.train`` on full-width
+   granite-8b cut to 8 of its 36 layers (float32 masters, bf16 compute,
+   AdamW, remat a layer), batch 2 x 4096, 4 steps of ``token_batches``.
+   One gradient first: every parameter leaf finite and nonzero.  Counters
+   zeroed just before the training and read just after: K2 and its
+   backward at least 17 launches a step each.  Prints each step's loss,
+   the mean step ms, the peak memory and the model FLOPs' share of 989
+   TFLOP/s.
 
 The second-to-last line is ``{"kernels": [...]}`` (each kernel's launches
 by path under ``launches_by_path``: engine, moe, vlm, fleet, the four
-slot paths, ``slot_granite_ref`` and ``device_loop``); the last line is
+slot paths, ``slot_granite_ref``, ``device_loop`` and ``train``; the
+serving paths must launch no ``rms_norm_bwd``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is disabled for matmuls and
 cuDNN so float32 comparisons are float32.
 """
@@ -314,6 +334,92 @@ def phase_rms_norm(dev):
                 **{k: main[k] for k in _NORM_KEYS},
                 max_abs_err_all=max(c["max_abs_err"] for c in cases),
                 cases=[{k: c[k] for k in _NORM_KEYS} for c in cases[1:]])
+
+
+def _norm_bwd_case(dev, R, d, dtype, *, fused, seed):
+    """K2's backward on one case against its plain version: dx within the
+    K2 tolerance, dscale within 1e-3 of its largest entry (float32 sums
+    in another order), and the same bits on a second call.  Timed beside
+    its byte bound, its plain version and autograd's backward of
+    ``F.rms_norm`` (the graph built once; for the fused call of ``x + r``
+    then ``F.rms_norm``, the gradient of s added)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rms_norm as rk
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    x, gy, gs = rnd(R, d), rnd(R, d), rnd(R, d) if fused else None
+    sc = torch.randn((d,), generator=g, device=dev)
+
+    def fn():
+        return rk.rms_norm_bwd(x, gy, sc, 1e-5, gs)
+
+    def plain():
+        return rk.rms_norm_bwd_plain(x, gy, sc, 1e-5, gs)
+
+    what = (f"rms_norm_bwd ({R}, {d}) {str(dtype)[6:]}"
+            f"{' fused' if fused else ''}")
+    (dx, dsc), (dx2, dsc2), (wdx, wdsc) = fn(), fn(), plain()
+    err = compare(what + " dx", dx, wdx)
+    torch.cuda.synchronize()
+    sc_err = float((dsc - wdsc).abs().max()) / float(wdsc.abs().max())
+    check(sc_err <= 1e-3, f"{what}: dscale off by {sc_err:.3e} of its "
+                          f"largest entry")
+    check(torch.equal(dx, dx2) and torch.equal(dsc, dsc2),
+          f"{what}: two calls on the same inputs differ")
+    xl = x.detach().clone().requires_grad_(True)
+    wl = sc.to(dtype).requires_grad_(True)
+    s = xl
+    if fused:
+        rl = torch.zeros_like(x, requires_grad=True)
+        s = xl + rl
+    out = F.rms_norm(s, (d,), weight=wl, eps=1e-5)
+    outs, grads = ((out, s), (gy, gs)) if fused else ((out,), (gy,))
+
+    def lib():
+        return torch.autograd.grad(outs, (xl, wl), grads, retain_graph=True)
+    es = x.element_size()
+    nbytes = (4 if fused else 3) * R * d * es + 2 * d * 4
+    flops = (12.0 if fused else 11.0) * R * d
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(max_abs_err=err, dscale_rel_err=sc_err, ms=time_ms(fn),
+                plain_ms=time_ms(plain), library_ms=time_ms(lib),
+                bound_ms=b_ms, bound_by=b_by,
+                shape=f"x, g{', gs' if fused else ''} ({R}, {d}) "
+                      f"{str(dtype)[6:]}, scale ({d},) f32")
+
+
+_NORM_BWD_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "max_abs_err", "dscale_rel_err")
+
+
+def phase_rms_norm_bwd(dev):
+    """K2's backward at the train path's shape (8192, 4096) bf16 (the
+    row's numbers), plain and fused, and in float32; at a decode-sized
+    (32, 4096), plain and fused."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [_norm_bwd_case(dev, R, 4096, dt, fused=fu, seed=40 + i)
+             for i, (R, dt, fu) in enumerate(
+                 ((8192, bf, False), (8192, bf, True), (8192, f32, False),
+                  (32, bf, False), (32, bf, True), (32, f32, False)))]
+    for c in cases:
+        print(f"kernel rms_norm_bwd [{c['shape']}]: {c['ms'] * 1e3:.2f} us "
+              f"(bound {c['bound_ms'] * 1e3:.3f} us by {c['bound_by']}, "
+              f"{c['bound_ms'] / c['ms']:.1%} of it), plain "
+              f"{c['plain_ms'] * 1e3:.2f} us, autograd of F.rms_norm "
+              f"{c['library_ms'] * 1e3:.2f} us (kernel / library "
+              f"{c['ms'] / c['library_ms']:.2f}x); dx max abs err "
+              f"{c['max_abs_err']:.3e}, dscale {c['dscale_rel_err']:.3e} of "
+              f"its largest entry")
+    main = cases[0]
+    return dict(name="rms_norm_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/rms_norm.cu",
+                replaces="src/repro/kernels/rms_norm.py:28",
+                backward_of="rms_norm",
+                **{k: main[k] for k in _NORM_BWD_KEYS},
+                max_abs_err_all=max(c["max_abs_err"] for c in cases),
+                cases=[{k: c[k] for k in _NORM_BWD_KEYS} for c in cases[1:]])
 
 
 def _paged_case(dev, flush, B, Hq, Hkv, hd, bs, mb, *, seed, lo=1):
@@ -1537,6 +1643,226 @@ def phase_device_loop_path() -> dict:
     return launches
 
 
+def _value_and_grads(cfg, params, batch, compute=torch.bfloat16):
+    """The train step's loss and gradients (``compute`` from the float32
+    masters, as ``make_train_step`` casts them), without the optimizer."""
+    from repro_torch.models import loss_fn
+    from repro_torch.models.layers import tree_leaves, tree_map
+    ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    flat = tree_leaves(ps)
+
+    def cast(p):
+        return p.to(compute) if p.dim() > 1 else p
+    loss = loss_fn(cfg, tree_map(cast, ps), batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), grads
+
+
+def phase_cross_device_train(dev):
+    """Training on granite-8b-smoke, float32 weights and compute: the same
+    reference-layout weights (the port's seeded init, through numpy and
+    ``params_from_numpy``) and batches on the CPU (plain norms) and the
+    card (K2 and its backward kernel).  One step's gradients within 1e-4
+    of each leaf's largest entry; five steps of ``train`` (default AdamW,
+    whose warm-up keeps a parameter within 2 x the sum of the learning
+    rates, 9e-5, of its other run even where a tiny gradient's sign
+    differs): loss histories within 1e-5 relative, every parameter within
+    1e-4; a checkpoint written by the CPU run after 4 steps, resumed on the
+    card, gives the CPU's fifth loss and its final parameters.  Then the
+    launcher, ``python -m repro_torch.launch.train --arch granite-8b
+    --smoke --steps 4``, on the card as a subprocess."""
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import token_batches
+    from repro_torch.models import init_params, params_from_numpy
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.training import (AdamWConfig, load_checkpoint,
+                                      make_train_step, train)
+    from repro_torch.training.optimizer import OptState
+    cfg = dataclasses.replace(get_smoke_config("granite-8b"),
+                              dtype="float32")
+    weights = tree_map(lambda t: t.numpy(), init_params(cfg, 0,
+                                                        device="cpu"))
+    batches = list(token_batches(vocab_size=cfg.vocab_size, batch=4,
+                                 seq_len=64, n_batches=5, seed=7))
+    tb = {k: torch.from_numpy(v) for k, v in batches[0].items()}
+    grads = []
+    for d in ("cpu", dev):
+        p = params_from_numpy(weights, device=d)
+        f0, b0 = _launch_counts()
+        loss, g = _value_and_grads(cfg, p, {k: v.to(d) for k, v in
+                                            tb.items()}, torch.float32)
+        f1, b1 = _launch_counts()
+        grads.append(g)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            check(f1 > f0 and b1 > b0, "cross-device train: the card's "
+                  "gradient did not run K2 and its backward")
+    worst = 0.0
+    for a, b in zip(*grads):
+        err = float((a.cpu() - b.cpu()).abs().max()) / max(
+            float(a.abs().max()), 1e-30)
+        worst = max(worst, err)
+    check(worst <= 1e-4, f"cross-device train: gradients differ by "
+                         f"{worst:.3e} of a leaf's largest entry")
+    runs = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        for d in ("cpu", dev):
+            p = params_from_numpy(weights, device=d)
+            p, losses = train(cfg, params=p, batches=batches, log_every=0,
+                              ckpt_dir=ckpt if d == "cpu" else None,
+                              ckpt_every=4, compute_dtype="float32")
+            runs.append((p, losses))
+        (pc, lc), (pd, ld) = runs
+        rel = max(abs(a - b) / abs(a) for a, b in zip(lc, ld))
+        check(rel <= 1e-5, f"cross-device train: loss histories {lc} and "
+                           f"{ld} differ by {rel:.3e} relative")
+        perr = max(float((a - b.cpu()).abs().max())
+                   for a, b in zip(tree_leaves(pc), tree_leaves(pd)))
+        check(perr <= 1e-4, f"cross-device train: parameters after 5 steps "
+                            f"differ by {perr:.3e}")
+        like = params_from_numpy(weights, device=dev)
+        tree, step = load_checkpoint(ckpt, {"params": like, "opt_m": like,
+                                            "opt_v": like})
+        check(step == 4, f"cross-device train: checkpoint step {step}")
+        opt = OptState(step=torch.tensor(step, dtype=torch.int32,
+                                         device=dev),
+                       m=tree["opt_m"], v=tree["opt_v"])
+        step_fn = make_train_step(cfg, AdamWConfig(),
+                                  compute_dtype="float32")
+        loss5, pr, _ = step_fn(tree["params"], opt, {
+            k: torch.from_numpy(v).to(dev) for k, v in batches[4].items()})
+        loss5 = float(loss5)
+        check(abs(loss5 - lc[4]) <= 1e-5 * abs(lc[4]),
+              f"cross-device train: the card resumed from the CPU's "
+              f"checkpoint to loss {loss5}, the CPU's fifth step had "
+              f"{lc[4]}")
+        rerr = max(float((a - b.cpu()).abs().max())
+                   for a, b in zip(tree_leaves(pc), tree_leaves(pr)))
+        check(rerr <= 1e-4, f"cross-device train: resumed parameters "
+                            f"differ by {rerr:.3e}")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--arch", "granite-8b", "--smoke", "--steps", "4"],
+                       capture_output=True, text=True, env=env, cwd=ROOT,
+                       timeout=300)
+    check(r.returncode == 0 and "[train] done: loss" in r.stdout,
+          f"launch.train on the card failed ({r.returncode}): "
+          f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    return dict(grad_err=worst, losses=ld, rel=rel, param_err=perr,
+                resume_loss=loss5, resume_param_err=rerr,
+                launcher=r.stdout.strip().splitlines()[-1],
+                launcher_s=time.perf_counter() - t0)
+
+
+def _launch_counts() -> tuple[int, int]:
+    from repro_torch.kernels import rms_norm as rk
+    return rk.rms_norm.launches, rk.rms_norm_bwd.launches
+
+
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 4096, 4
+
+
+def phase_train_path(card: str) -> dict:
+    """The train path: ``repro_torch.training.train`` on full-width
+    granite-8b (d=4096, 32/8 heads of 128, d_ff=14336, vocab 49,152),
+    depth cut to TRAIN_LAYERS of 36 (float32 masters with AdamW m and v,
+    float32 gradients and the bfloat16 compute copy take ~18 bytes a
+    parameter), seeded random weights, batch TRAIN_BATCH x TRAIN_SEQ
+    (train_4k's sequence), TRAIN_STEPS steps of ``token_batches``, remat
+    a layer, the launcher's AdamW.  First one gradient alone: every
+    parameter leaf's finite and nonzero (K2's backward passes the
+    gradient through every layer).  Counters zeroed just before the
+    training and read just after: K2 at least (2 L + 1) and its backward
+    at least (2 L + 1) launches a step.  Prints each step's loss, the
+    mean step ms (steps after the first), the peak device memory, the
+    model FLOPs a step (the port's ``analytic_flops``) and their share of
+    989 TFLOP/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.data import token_batches
+    from repro_torch.launch.roofline import H100, analytic_flops
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training import AdamWConfig, train
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("granite-8b"),
+                              n_layers=TRAIN_LAYERS)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = init_params(dataclasses.replace(cfg, dtype="float32"), 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = _numel(params)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in token_batches(vocab_size=cfg.vocab_size,
+                                      batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                      n_batches=TRAIN_STEPS, seed=0)]
+    f0, b0 = _launch_counts()
+    loss, grads = _value_and_grads(cfg, params, batches[0])
+    torch.cuda.synchronize()
+    f1, b1 = _launch_counts()
+    check(all(g is not None for g in grads),
+          "train path: a parameter leaf got no gradient")
+    bad = [i for i, g in enumerate(grads)
+           if not (torch.isfinite(g).all().item() and g.abs().max().item()
+                   > 0)]
+    check(not bad and bool(torch.isfinite(loss)),
+          f"train path: {len(bad)} parameter leaves have a zero or "
+          f"non-finite gradient (loss {float(loss)})")
+    check(f1 - f0 >= 2 * L + 1 and b1 - b0 >= 2 * L + 1,
+          f"train path: one gradient launched K2 {f1 - f0} and its "
+          f"backward {b1 - b0} times, need >= {2 * L + 1} each")
+    print(f"train path: {cfg.name} cut to {L} layers, "
+          f"{n_par / 1e9:.3f} B parameters (float32 masters), init "
+          f"{init_s:.2f} s; one gradient: loss {float(loss):.4f}, all "
+          f"{len(grads)} leaves finite and nonzero, K2 {f1 - f0} and its "
+          f"backward {b1 - b0} launches [{card}]")
+    del loss, grads
+    _free()
+    stamps, log = [], []
+
+    def log_fn(msg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        log.append(msg)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=min(20, TRAIN_STEPS // 5),
+                      total_steps=TRAIN_STEPS)
+    launches = _zero_and_read(None)
+    t0 = time.perf_counter()
+    params, losses = train(cfg, params=params, batches=batches, opt_cfg=opt,
+                           log_every=1, log_fn=log_fn)
+    launches = _zero_and_read(launches)
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train path: losses {losses}")
+    n = TRAIN_STEPS
+    check(launches["rms_norm"] >= (2 * L + 1) * n
+          and launches["rms_norm_bwd"] >= (2 * L + 1) * n,
+          f"train path: K2 launched {launches['rms_norm']} and its "
+          f"backward {launches['rms_norm_bwd']} times over {n} steps, need "
+          f">= {(2 * L + 1) * n} each")
+    steps_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    mean_ms = float(np.mean(steps_ms[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+    flops = analytic_flops(cfg, shape)
+    share = flops["model_flops"] / (mean_ms / 1e3 * H100.peak_flops)
+    for i, (lo, ms) in enumerate(zip(losses, steps_ms)):
+        print(f"train path step {i}: loss {lo:.4f}, {ms:.1f} ms [{card}]")
+    print(f"train path MEASURED on {torch.cuda.get_device_name(0)}: mean "
+          f"step {mean_ms:.1f} ms (steps 1..{n - 1}), peak memory "
+          f"{peak:.2f} GB; model FLOPs a step {flops['model_flops']:.4e} "
+          f"(6 N D, N = {cfg.active_params() / 1e9:.3f} B, D = "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}), {share:.1%} of 989 TFLOP/s bf16; "
+          f"with the remat pass and attention {flops['with_remat']:.4e}; "
+          f"launches {launches} [{card}]")
+    del params, batches
+    _free()
+    return launches
+
+
 def _free() -> None:
     """Release a finished path's device memory: the wrapped ``decode``
     methods of the fleet's counting hook form reference cycles, so
@@ -1546,13 +1872,15 @@ def _free() -> None:
 
 
 def _wrappers() -> dict:
-    """The five kernel wrappers, each with its ``launches`` counter."""
+    """The kernel wrappers (the five kernels and K2's backward), each with
+    its ``launches`` counter."""
     from repro_torch.kernels import bfio_swap as bs
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rms_norm as rk
     from repro_torch.kernels import ssm_scan as ss
     return {"rms_norm": rk.rms_norm,
+            "rms_norm_bwd": rk.rms_norm_bwd,
             "paged_decode_attention": pa.paged_decode_attention,
             "bfio_swap": bs.swap_best,
             "decode_attention": da.decode_attention,
@@ -1609,7 +1937,7 @@ def main() -> None:
                 print(f"ptxas {src}: {line.strip()}")
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
-    kernels = [phase_rms_norm(dev)]
+    kernels = [phase_rms_norm(dev), phase_rms_norm_bwd(dev)]
     # the timing method's floor: a one-element add timed as the kernels are
     one = torch.zeros(1, device=dev)
     floor_ms = time_ms(lambda: one.add_(1), flush=flush)
@@ -1661,6 +1989,16 @@ def main() -> None:
     for what, toks, differ in engines:
         print(f"cross-device moe: {what} f32, {toks} tokens, stats equal on "
               f"cpu and the card; {differ} generated tokens differ")
+    tr = phase_cross_device_train(dev)
+    print(f"cross-device train: granite-8b-smoke f32, one gradient within "
+          f"{tr['grad_err']:.3e} of each leaf's largest entry; 5 steps of "
+          f"train, losses {['%.6f' % x for x in tr['losses']]} within "
+          f"{tr['rel']:.3e} relative, parameters within "
+          f"{tr['param_err']:.3e}; the CPU's step-4 checkpoint resumed on "
+          f"the card: loss {tr['resume_loss']:.6f}, parameters within "
+          f"{tr['resume_param_err']:.3e}; launch.train --smoke --steps 4 "
+          f"on the card ({tr['launcher_s']:.1f} s): {tr['launcher']} "
+          f"[{card}]")
 
     paths = {"engine": phase_paged_path("granite-8b", "main path")}
     paths["moe"] = phase_paged_path("qwen3-moe-30b-a3b", "moe path")
@@ -1673,8 +2011,12 @@ def main() -> None:
                   "slot_whisper": phase_slot_path("whisper-tiny", 32),
                   "slot_granite_ref": phase_slot_path("granite-8b", 32,
                                                       engine_mode="ref"),
-                  "device_loop": phase_device_loop_path()})
+                  "device_loop": phase_device_loop_path(),
+                  "train": phase_train_path(card)})
 
+    for p, counts in paths.items():
+        check(p == "train" or counts["rms_norm_bwd"] == 0,
+              f"{p} path: the serving path ran K2's backward")
     rows = []
     for k in kernels:
         row = {key: k[key] for key in (
@@ -1687,7 +2029,8 @@ def main() -> None:
         row["launches_by_path"] = by_path
         row["matched"] = True
         row.update({key: k[key] for key in (
-            "kernel_only_ms", "scores_ms", "bound_share",
+            "kernel_only_ms", "scores_ms", "bound_share", "backward_of",
+            "dscale_rel_err",
             "bound_ms_chunked_form", "at_pod_scale",
             "shape", "max_abs_err_all", "cases", "timing_floor_ms")
             if key in k})

@@ -38,6 +38,8 @@ import ctypes
 
 import torch
 
+from .grad import refuse_grad
+
 __all__ = ["decode_attention", "decode_attention_plain", "live_span"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -111,6 +113,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                       rolling=rolling)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     B, Hq, hd = q.shape
     Bk, L, Hkv, hd_k = k_cache.shape
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \

@@ -35,6 +35,8 @@ import math
 
 import torch
 
+from .grad import refuse_grad
+
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "paged_decode_attention_ref"]
 
@@ -112,6 +114,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
+    refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     B, Hq, hd = q.shape
     n_pool, bs, Hkv, hd_k = k_pool.shape
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \

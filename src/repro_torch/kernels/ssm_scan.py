@@ -38,6 +38,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .grad import refuse_grad
+
 __all__ = ["ssm_chunk_scan", "ssm_chunk_scan_plain", "plan", "Plan",
            "scores_pass"]
 
@@ -217,6 +219,7 @@ def ssm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     initial_state=initial_state)
     if q.device.type != "cuda":
         raise ValueError(f"ssm_chunk_scan: unsupported device {q.device}")
+    refuse_grad("ssm_chunk_scan", q, k, v, log_decay, gate, initial_state)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

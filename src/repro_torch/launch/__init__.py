@@ -1,1 +1,2 @@
-"""Launchers: the single-engine serving entry point."""
+"""Launchers: the serving and training entry points, the decode and
+fleet profilers, and the roofline analysis (H100 constants)."""

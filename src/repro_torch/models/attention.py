@@ -1,6 +1,7 @@
-"""Attention as plain PyTorch: causal prefill, mid-prefill chunk
-attention, non-causal cross attention, and cached one-token decode with
-ragged lengths.
+"""Attention as plain PyTorch: causal prefill, the blocked causal
+attention that training differentiates, mid-prefill chunk attention,
+non-causal cross attention, and cached one-token decode with ragged
+lengths.
 
 All paths are GQA-native: queries are shaped (B, S, Hkv, G, hd) inside
 the einsums so K/V are never expanded to Hq width.  The reference runs
@@ -13,17 +14,32 @@ in rounding order.  One-token decode has kernels: over the paged pool
 :mod:`repro_torch.kernels.decode_attention` — the Hopper kernel on a CUDA
 tensor, its plain version on a CPU tensor; the ``"gather"`` paged path
 reuses it on a gathered view).
+
+Training (``transformer.loss_fn``) attends through
+:func:`blocked_causal_attention`, the reference's blocked causal
+attention with its hand-written backward (``repro/models/attention.py``
+``_flash_fwd_scan`` / ``_flash_attend`` / ``_flash_bwd`` /
+``_attend_q_chunk``): a Python loop over query chunks, each an
+online-softmax pass over the key chunks up to its causal frontier, as a
+``torch.autograd.Function`` whose backward recomputes every (query chunk
+x key chunk) tile from the saved log-sum-exp instead of keeping it, so
+memory stays bounded by a tile in both directions.  It is the
+reference's jnp code, not a Pallas kernel, so plain PyTorch is its port;
+its roundings are the reference's (the pre-scaled query rounded to K's
+dtype in the forward, the backward in float32), which
+``scaled_dot_product_attention`` does not give.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 
-__all__ = ["causal_attention", "chunk_attention", "cross_attention",
-           "decode_attention"]
+__all__ = ["causal_attention", "blocked_causal_attention", "chunk_attention",
+           "cross_attention", "decode_attention"]
 
 _NEG = -1e30
 
@@ -64,6 +80,170 @@ def causal_attention(q, k, v, *, q_offset: int = 0, sliding_window: int = 0,
         s = s + bias[:, None, None, None, :].float()
     p = torch.softmax(s, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
+    return out.reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def _tile_mask(q_pos, kv_pos, skv_valid: int, sliding_window: int):
+    """The causal (and window) and padding mask of one tile: q_pos (Sqc,),
+    kv_pos (C,) -> (Sqc, C) bool."""
+    mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :]
+                                                  < skv_valid)
+    if sliding_window:
+        mask = mask & (kv_pos[None, :] > q_pos[:, None] - sliding_window)
+    return mask
+
+
+def _flash_fwd_scan(qf, k, v, bias, q_pos0: int, sliding_window: int,
+                    kv_chunk: int, n_kv: int, skv_valid: int):
+    """Forward online-softmax pass of one query chunk over ``n_kv`` key
+    chunks; returns (out (B, Hkv, G, Sqc, hd) fp32, L the log-sum-exp
+    (B, Hkv, G, Sqc)).  The scores take the query rounded to K's dtype and
+    P rounded to V's dtype, with float32 products, as the reference's
+    ``preferred_element_type`` einsums."""
+    b, sqc, hkv, g, hd = qf.shape
+    dev = qf.device
+    qk = qf.to(k.dtype).float()
+    q_pos = q_pos0 + torch.arange(sqc, device=dev)
+    m = torch.full((b, hkv, g, sqc), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, g, sqc), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, sqc, hd), dtype=torch.float32, device=dev)
+    for ci in range(n_kv):
+        start = ci * kv_chunk
+        kc = k[:, start:start + kv_chunk]
+        vc = v[:, start:start + kv_chunk]
+        bc = bias[:, start:start + kv_chunk]
+        s = torch.einsum("bqhgd,bchd->bhgqc", qk, kc.float())
+        kv_pos = start + torch.arange(kv_chunk, device=dev)
+        mask = _tile_mask(q_pos, kv_pos, skv_valid, sliding_window)
+        s = torch.where(mask, s, torch.full_like(s, _NEG))
+        s = s + bc[:, None, None, None, :]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqc,bchd->bhgqd", p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    L = m + torch.log(l.clamp_min(1e-30))
+    return out, L
+
+
+def _flash_bwd(q_pos0: int, sliding_window: int, kv_chunk: int, n_kv: int,
+               skv_valid: int, res, g_out):
+    """The backward of one query chunk, every tile recomputed in float32
+    from the saved log-sum-exp: returns (dq fp32, dk, dv in K's and V's
+    dtypes)."""
+    qf, k, v, bias, out, L = res
+    sqc = qf.shape[1]
+    dev = qf.device
+    dout = g_out.float().permute(0, 2, 3, 1, 4)        # (B,Hkv,G,Sqc,hd)
+    D = (dout * out).sum(dim=-1)                        # (B,Hkv,G,Sqc)
+    q_pos = q_pos0 + torch.arange(sqc, device=dev)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for ci in range(n_kv):
+        start = ci * kv_chunk
+        kc = k[:, start:start + kv_chunk].float()
+        vc = v[:, start:start + kv_chunk].float()
+        bc = bias[:, start:start + kv_chunk]
+        s = torch.einsum("bqhgd,bchd->bhgqc", qf, kc)
+        kv_pos = start + torch.arange(kv_chunk, device=dev)
+        mask = _tile_mask(q_pos, kv_pos, skv_valid, sliding_window)
+        s = torch.where(mask, s, torch.full_like(s, _NEG))
+        s = s + bc[:, None, None, None, :]
+        p = torch.exp(s - L[..., None])                 # (B,Hkv,G,Sqc,C)
+        dp = torch.einsum("bhgqd,bchd->bhgqc", dout, vc)
+        ds = p * (dp - D[..., None])
+        dq = dq + torch.einsum("bhgqc,bchd->bqhgd", ds, kc)
+        dks.append(torch.einsum("bhgqc,bqhgd->bchd", ds, qf))
+        dvs.append(torch.einsum("bhgqc,bhgqd->bchd", p, dout))
+    dk = torch.cat(dks, dim=1)
+    dv = torch.cat(dvs, dim=1)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttend(torch.autograd.Function):
+    """Flash attention for one query chunk (fp32 ``qf`` pre-scaled), the
+    reference's ``_flash_attend`` custom VJP: the forward saves the chunk's
+    output and log-sum-exp, the backward recomputes each (Sqc x C) tile
+    instead of differentiating through the saved scan.  bias: (B,
+    Skv_pad) additive fp32 (0 / -1e30), which carries ragged lengths.
+    Returns (B, Sqc, Hkv, G, hd) fp32."""
+
+    @staticmethod
+    def forward(ctx, qf, k, v, bias, q_pos0, sliding_window, kv_chunk,
+                n_kv, skv_valid):
+        args = (q_pos0, sliding_window, kv_chunk, n_kv, skv_valid)
+        out, L = _flash_fwd_scan(qf, k, v, bias, *args)
+        ctx.save_for_backward(qf, k, v, bias, out, L)
+        ctx.args = args
+        return out.permute(0, 3, 1, 2, 4)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        dq, dk, dv = _flash_bwd(*ctx.args, ctx.saved_tensors, g_out)
+        return (dq, dk, dv) + (None,) * 6
+
+
+def _attend_q_chunk(qf, k, v, *, q_pos0: int, skv_valid: int,
+                    sliding_window: int, kv_chunk: int,
+                    lengths: Optional[torch.Tensor], n_kv: int):
+    """Online-softmax attention of one query chunk against k[:, :n_kv*C].
+    qf: (B, Sq_c, Hkv, G, hd) pre-scaled fp32; k/v padded to kv_chunk
+    multiples.  Returns fp32 (B, Sq_c, Hkv, G, hd)."""
+    b, skv_pad = qf.shape[0], k.shape[1]
+    if lengths is not None:
+        pos = torch.arange(skv_pad, device=qf.device)
+        bias = torch.where(pos[None, :] < lengths.long()[:, None], 0.0,
+                           _NEG).float()
+    else:
+        bias = torch.zeros((b, skv_pad), dtype=torch.float32,
+                           device=qf.device)
+    return _FlashAttend.apply(qf, k, v, bias, q_pos0, sliding_window,
+                              kv_chunk, n_kv, skv_valid)
+
+
+def blocked_causal_attention(q, k, v, *, q_offset: int = 0,
+                             sliding_window: int = 0, kv_chunk: int = 512,
+                             q_chunk: int = 512,
+                             lengths: Optional[torch.Tensor] = None):
+    """Two-level blocked causal self-attention with online softmax, the
+    reference's ``causal_attention`` with its backward (see the module
+    docstring).  q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd), Hq % Hkv ==
+    0.  Query chunks are a Python loop so each chunk's key scan stops at
+    the causal frontier; at most 16 of them (longer sequences take wider
+    chunks).  Peak score tile: (B, Hkv, G, q_chunk, kv_chunk).
+    q_offset: absolute position of q[0]; lengths: (B,) valid kv lengths.
+    Returns (B, Sq, Hq, hd) in q's dtype."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kv_chunk = min(kv_chunk, skv)
+    if max(1, sq // q_chunk) > 16:
+        q_chunk = sq // 16
+    q_chunk = min(q_chunk, sq)
+    pad_kv = (-skv) % kv_chunk
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    qf = _group_q(q, hkv).float() * _scale(hd, q.device)
+    outs = []
+    for start in range(0, sq, q_chunk):
+        stop = min(start + q_chunk, sq)
+        # causal frontier: this chunk never reads past q_offset + stop
+        lo = 0
+        if sliding_window:
+            lo = max(0, (q_offset + start - sliding_window + 1)
+                     // kv_chunk * kv_chunk)
+        hi_tok = min(q_offset + stop, skv)
+        n_kv = max(1, -(-(hi_tok - lo) // kv_chunk))
+        outs.append(_attend_q_chunk(
+            qf[:, start:stop], k[:, lo:lo + n_kv * kv_chunk],
+            v[:, lo:lo + n_kv * kv_chunk], q_pos0=q_offset + start - lo,
+            skv_valid=skv - lo, sliding_window=sliding_window,
+            kv_chunk=kv_chunk,
+            lengths=None if lengths is None else lengths - lo, n_kv=n_kv))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     return out.reshape(b, sq, hq, hd).to(q.dtype)
 
 

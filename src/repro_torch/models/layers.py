@@ -4,11 +4,16 @@ The reference attaches logical sharding axes to every parameter; the port
 runs on one card, so parameters are bare tensors in nested dicts that keep
 the reference's layout (``wq (d, Hq, hd)``, ``wo (Hq, hd, d)``, stacked
 layers on a leading axis).  Initializers take an explicit
-``torch.Generator`` and ``device``.
+``torch.Generator`` and ``device``.  :class:`Param` with
+:func:`split_params` / :func:`merge_params` keeps the reference's
+(value, logical axes) pairing for code that carries axes along, and
+:func:`tree_map` / :func:`tree_leaves` walk the nested dicts and tuples
+as JAX walks a pytree (dict keys in sorted order).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -17,6 +22,11 @@ import torch.nn.functional as F
 from ..kernels import ops
 
 __all__ = [
+    "Param",
+    "split_params",
+    "merge_params",
+    "tree_map",
+    "tree_leaves",
     "rms_norm",
     "add_rms_norm",
     "layer_norm",
@@ -28,7 +38,79 @@ __all__ = [
     "linear",
     "swiglu",
     "gelu_mlp",
+    "cross_entropy_loss",
 ]
+
+PyTree = Any
+
+
+# --------------------------------------------------------------------------
+# parameter trees
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Param:
+    """A parameter plus its logical sharding axes (one name per dim)."""
+
+    value: Any
+    axes: tuple
+
+    def __post_init__(self) -> None:
+        assert len(self.axes) == self.value.ndim, (
+            f"axes {self.axes} vs shape {tuple(self.value.shape)}")
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
+             is_leaf: Optional[Callable] = None) -> PyTree:
+    """``fn`` over the leaves of nested dicts, tuples and lists (``rest``:
+    trees of the same structure, their leaves passed alongside); None is
+    an empty subtree, as in JAX."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: PyTree, is_leaf: Optional[Callable] = None) -> list:
+    """The leaves in JAX's order: dict entries by sorted key, sequences in
+    order, None dropped."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k],
+                                                               is_leaf)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v, is_leaf)]
+    return [tree]
+
+
+def _is_param(x) -> bool:
+    return isinstance(x, Param)
+
+
+def split_params(tree: PyTree) -> tuple[PyTree, PyTree]:
+    """Split a Param tree into (values, logical_axes) trees."""
+    return (tree_map(lambda p: p.value, tree, is_leaf=_is_param),
+            tree_map(lambda p: p.axes, tree, is_leaf=_is_param))
+
+
+def merge_params(values: PyTree, axes: PyTree) -> PyTree:
+    """The inverse of :func:`split_params`: a tensor (or numpy array) leaf
+    of ``values`` and the axes tuple at the same place make a Param."""
+    def is_array(x):
+        return isinstance(x, (torch.Tensor, np.ndarray))
+    return tree_map(lambda v, a: Param(v, a), values, axes,
+                    is_leaf=is_array)
 
 
 # --------------------------------------------------------------------------
@@ -136,3 +218,19 @@ def gelu_mlp(x, w_in, b_in, w_out, b_out):
     ``jax.nn.gelu``.  No model path calls it."""
     return linear(F.gelu(linear(x, w_in, b_in), approximate="tanh"), w_out,
                   b_out)
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+def cross_entropy_loss(logits, targets, mask=None):
+    """Mean next-token cross entropy in fp32; mask: (B, S) float weights."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,6 +1,6 @@
-"""Model assembly: parameter init, prefill, decode, chunked prefill and
-paged decode for all six families: the dense decoder, the MoE decoder
-(the dense stack with a top-k routed expert FFN,
+"""Model assembly: parameter init, the training loss, prefill, decode,
+chunked prefill and paged decode for all six families: the dense
+decoder, the MoE decoder (the dense stack with a top-k routed expert FFN,
 :mod:`repro_torch.models.moe`), the recurrent families (ssm: xLSTM's
 mLSTM/sLSTM stack; hybrid: Zamba2's Mamba2 stack with one shared
 attention block), vlm (the dense decoder with projected image-patch
@@ -33,6 +33,16 @@ n_blocks``; in full-batch slot decode an idle slot's length grows past
 ``max_seq_len``); PyTorch raises on such an index, so those writes are
 masked out first — never clamped into a live position.  Gathers through
 block tables are clipped, as the reference clips them.
+
+Training (:func:`loss_fn`) runs the stack in ``mode="train"``: no cache,
+attention through :func:`attention.blocked_causal_attention` (the
+reference's blocked attention with its recomputing backward), each block
+under ``torch.utils.checkpoint`` when ``remat`` (the reference's
+``jax.checkpoint`` a layer), the MoE load-balance losses summed over the
+layers, and the LM head fused with the cross entropy over sequence
+chunks.  On a CUDA tensor the norms take K2 with its backward kernel
+(:mod:`repro_torch.kernels.rms_norm`); the recurrent families' scans
+(K5) have no backward on the card and refuse to run under autograd.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn_lib
@@ -48,6 +59,7 @@ from . import ssm as ssm_lib
 from .layers import (
     add_rms_norm,
     apply_rope,
+    cross_entropy_loss,
     dense_init,
     embed_init,
     linear,
@@ -59,7 +71,7 @@ from .layers import (
 from .moe import moe_ffn
 
 __all__ = ["init_params", "init_cache", "layer_pattern",
-           "supports_paged_stack", "prefill_fn", "decode_fn",
+           "supports_paged_stack", "loss_fn", "prefill_fn", "decode_fn",
            "chunk_prefill_fn", "paged_decode_fn", "paged_chunk_prefill_fn",
            "resolve_device", "torch_dtype"]
 
@@ -360,15 +372,18 @@ def _slice(tree, i: int):
     return tree[i]
 
 
-def _mlp_forward(cfg: ModelConfig, p, x):
-    """The block's FFN: the routed experts for an MoE model (its
-    load-balance loss is not needed here and not computed), else the dense
-    MLP."""
+def _mlp_forward(cfg: ModelConfig, p, x, aux=None):
+    """The block's FFN: the routed experts for an MoE model, else the dense
+    MLP.  ``aux`` (a list, in training) collects the MoE load-balance
+    loss; without it the loss is not computed."""
     if cfg.is_moe:
-        return moe_ffn(x, p, n_experts=cfg.n_experts,
+        y, a = moe_ffn(x, p, n_experts=cfg.n_experts,
                        k=cfg.experts_per_token,
                        capacity_factor=cfg.capacity_factor,
-                       aux_loss=False)[0]
+                       aux_loss=aux is not None)
+        if aux is not None:
+            aux.append(a)
+        return y
     if cfg.mlp_variant == "swiglu":
         return swiglu(x, p["w_in"], p["w_gate"], p["w_out"])
     return linear(F.gelu(linear(x, p["w_in"]), approximate="tanh"),
@@ -393,13 +408,13 @@ def _out_proj(cfg: ModelConfig, ap, o):
                   ap["wo"].reshape(-1, cfg.d_model))
 
 
-def _chunk_finish(cfg: ModelConfig, p, xx, o):
+def _chunk_finish(cfg: ModelConfig, p, xx, o, aux=None):
     """Post-attention half: output projection, its residual added in norm2,
     FFN.  Returns (residual stream, FFN output): the next norm adds the
     second."""
     xx, h2 = add_rms_norm(xx, _out_proj(cfg, p["attn"], o), p["norm2"],
                           cfg.norm_eps)
-    return xx, _mlp_forward(cfg, p["ffn"], h2)
+    return xx, _mlp_forward(cfg, p["ffn"], h2, aux)
 
 
 def _write_rows(buf, pos, new):
@@ -415,12 +430,14 @@ def _write_rows(buf, pos, new):
 
 
 def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
-                  lengths, rolling: bool = False, cross=None):
+                  lengths, rolling: bool = False, cross=None, aux=None):
     """Self-attention block (+ FFN).  ``decode`` writes the new token's KV
     at ``lengths - 1`` (taken ``% L`` on a rolling cache) into ``cache`` in
     place and attends through :func:`attention.decode_attention` (kernel
     K3 on a CUDA tensor); ``prefill`` attends causally and fills the cache
-    rows' first S positions.
+    rows' first S positions; ``train`` attends through
+    :func:`attention.blocked_causal_attention` and writes no cache.
+    ``aux``: see :func:`_mlp_forward`.
 
     ``cross`` (audio): (this layer's ``cross_blocks`` entry, its cross KV
     {k, v} (B, S_enc, Hkv, hd), ``enc_lengths``).  Between the
@@ -439,9 +456,10 @@ def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
             q[:, 0].contiguous(), kc, vc, lengths,
             sliding_window=cfg.sliding_window, rolling=rolling)[:, None]
     else:
-        o = attn_lib.causal_attention(q, k, v,
-                                      sliding_window=cfg.sliding_window,
-                                      lengths=lengths)
+        attend = attn_lib.blocked_causal_attention if mode == "train" \
+            else attn_lib.causal_attention
+        o = attend(q, k, v, sliding_window=cfg.sliding_window,
+                   lengths=lengths)
         if cache is not None:
             S, L = k.shape[1], cache["k"].shape[1]
             if S > L:
@@ -457,7 +475,7 @@ def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
         o = attn_lib.cross_attention(qc, ckv["k"], ckv["v"],
                                      lengths=enc_lengths)
         p = dict(p, attn=cp["attn"])      # the cross wo projects o below
-    return _chunk_finish(cfg, p, x, o)
+    return _chunk_finish(cfg, p, x, o, aux)
 
 
 def _valid(lengths, S: int):
@@ -605,31 +623,55 @@ def _block_forward(cfg: ModelConfig, kind: str, p, x, r, *, mode: str,
 
 
 def _run_stack(cfg: ModelConfig, params, x, *, mode: str, cache,
-               common: dict):
+               common: dict, remat: bool = False, cross_kv=None,
+               enc_lengths=None):
     """Every block of every group in order; each block reads and writes
     its own slice of ``cache`` (the shared attention block: one cache per
     application; audio's decoder layer i also reads ``cross_blocks[i]``
-    and ``cache["cross_kv"][i]``).  Returns (residual stream, the last
-    block's branch output), which :func:`_lm_logits` adds."""
+    and entry i of the cross K/V, ``cross_kv`` or else
+    ``cache["cross_kv"]``, with ``enc_lengths`` or else
+    ``cache["enc_lengths"]``).  Returns (residual stream, the last block's
+    branch output), which :func:`_lm_logits` adds; ``mode="train"``
+    (no cache) adds a third value, the MoE load-balance loss summed over
+    the layers in order (float32 zero for the other families), and with
+    ``remat`` runs each block under ``torch.utils.checkpoint``."""
     r = None
-    audio = cfg.family == "audio"
+    train = mode == "train"
+    aux_total = x.new_zeros((), dtype=torch.float32) if train else None
+    if cfg.family == "audio" and cross_kv is None:
+        cross_kv, enc_lengths = cache["cross_kv"], cache["enc_lengths"]
+
+    def block(kind, p, x, r, c, kw):
+        if not train:
+            return _block_forward(cfg, kind, p, x, r, mode=mode, cache=c,
+                                  common=kw) + (None,)
+
+        def fn(x, r):
+            aux = []
+            x, r = _block_forward(
+                cfg, kind, p, x, r, mode=mode, cache=None,
+                common=dict(kw, aux=aux) if kind in ("attn", "shared_attn")
+                else kw)
+            return x, r, (aux[0] if aux else None)
+        return checkpoint(fn, x, r, use_reentrant=False) if remat \
+            else fn(x, r)
+
     for gname, kind, n in layer_pattern(cfg):
         gcache = cache.get(gname) if cache is not None else None
-        if kind == "shared_attn":
-            c = _slice(gcache, 0) if gcache is not None else None
-            x, r = _block_forward(cfg, kind, params["shared_attn"], x, r,
-                                  mode=mode, cache=c, common=common)
-            continue
-        gp = params[gname]
+        gp = params["shared_attn"] if kind == "shared_attn" \
+            else params[gname]
         for i in range(n):
             c = _slice(gcache, i) if gcache is not None else None
             kw = common
-            if audio:
-                kw = dict(common, cross=(
-                    _slice(params["cross_blocks"], i),
-                    _slice(cache["cross_kv"], i), cache["enc_lengths"]))
-            x, r = _block_forward(cfg, kind, _slice(gp, i), x, r, mode=mode,
-                                  cache=c, common=kw)
+            if cross_kv is not None:
+                kw = dict(common, cross=(_slice(params["cross_blocks"], i),
+                                         _slice(cross_kv, i), enc_lengths))
+            p = gp if kind == "shared_attn" else _slice(gp, i)
+            x, r, aux = block(kind, p, x, r, c, kw)
+            if aux is not None:
+                aux_total = aux_total + aux
+    if train:
+        return x, r, aux_total
     return x, r
 
 
@@ -648,34 +690,47 @@ def _last(x, lens, S):
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
-def _encode_audio(cfg: ModelConfig, params, frames):
+def _encode_audio(cfg: ModelConfig, params, frames, remat: bool = False):
     """Whisper-style encoder over precomputed frame embeddings (the stub
     front end): frames (B, S_enc, d) -> (B, S_enc, d).  Each layer: norm1,
     bidirectional :func:`attention.cross_attention` over every position,
     the residual, norm2, the FFN, the residual; then ``enc_norm``.  The
     learned ``enc_pos`` is the only position signal: the reference builds
-    rope tables here and applies none."""
+    rope tables here and applies none.  ``remat``: each layer under
+    ``torch.utils.checkpoint`` (training)."""
     x = frames.to(params["enc_pos"].dtype) + params["enc_pos"][None]
-    r = None
-    for i in range(cfg.encoder_layers):
-        p = _slice(params["enc_blocks"], i)
+
+    def layer(p, x, r):
         x, h = add_rms_norm(x, r, p["norm1"], cfg.norm_eps)
         ap = p["attn"]
         q = linear(h, ap["wq"], ap.get("bq"))
         k = linear(h, ap["wk"], ap.get("bk"))
         v = linear(h, ap["wv"], ap.get("bv"))
-        x, r = _chunk_finish(cfg, p, x, attn_lib.cross_attention(q, k, v))
+        return _chunk_finish(cfg, p, x, attn_lib.cross_attention(q, k, v))
+
+    r = None
+    for i in range(cfg.encoder_layers):
+        p = _slice(params["enc_blocks"], i)
+        x, r = checkpoint(layer, p, x, r, use_reentrant=False) if remat \
+            else layer(p, x, r)
     return add_rms_norm(x, r, params["enc_norm"], cfg.norm_eps)[1]
 
 
-def _cross_kv_from_encoder(cfg: ModelConfig, params, enc_out, cross_kv):
-    """Every decoder layer's cross K/V of the encoder output, written into
-    ``cross_kv`` {"k", "v"} of shape (layers, B, S_enc, Hkv, hd) in place;
-    returns it."""
-    for i in range(cfg.n_layers):
+def _cross_kv_from_encoder(cfg: ModelConfig, params, enc_out, cross_kv=None):
+    """Every decoder layer's cross K/V of the encoder output, {"k", "v"} of
+    shape (layers, B, S_enc, Hkv, hd): written into ``cross_kv`` in place
+    and returned, or (``cross_kv`` None, in training) stacked into new
+    tensors."""
+    def kv(i):
         ap = _slice(params["cross_blocks"]["attn"], i)
-        cross_kv["k"][i] = linear(enc_out, ap["wk"], ap.get("bk"))
-        cross_kv["v"][i] = linear(enc_out, ap["wv"], ap.get("bv"))
+        return (linear(enc_out, ap["wk"], ap.get("bk")),
+                linear(enc_out, ap["wv"], ap.get("bv")))
+
+    if cross_kv is None:
+        ks, vs = zip(*(kv(i) for i in range(cfg.n_layers)))
+        return {"k": torch.stack(ks), "v": torch.stack(vs)}
+    for i in range(cfg.n_layers):
+        cross_kv["k"][i], cross_kv["v"][i] = kv(i)
     return cross_kv
 
 
@@ -694,9 +749,76 @@ def _prepare_inputs(cfg: ModelConfig, params, batch):
     return x
 
 
+def _chunked_lm_loss(cfg: ModelConfig, params, x, r, targets, mask, *,
+                     chunk: int = 256):
+    """The final norm (adding the last block's pending branch ``r``), the
+    LM head and the cross entropy, over sequence chunks of ``chunk`` each
+    under ``torch.utils.checkpoint``, so the fp32 (B, S, V) logits are
+    never held whole; one pass over the whole sequence when S is not a
+    multiple of ``chunk`` or not longer than it.  Returns the masked mean
+    next-token loss."""
+    B, S, _ = x.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    if S % chunk != 0 or S <= chunk:
+        return cross_entropy_loss(_lm_logits(cfg, params, x, r), targets,
+                                  mask)
+
+    def body(xs, rs, ts, ms):
+        logits = _lm_logits(cfg, params, xs, rs).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ts.long()[..., None])[..., 0]
+        msf = ms.float()
+        return ((logz - gold) * msf).sum(), msf.sum()
+
+    nll = x.new_zeros((), dtype=torch.float32)
+    m = x.new_zeros((), dtype=torch.float32)
+    for i in range(S // chunk):
+        cols = slice(i * chunk, (i + 1) * chunk)
+        a, b = checkpoint(body, x[:, cols].contiguous(),
+                          None if r is None else r[:, cols].contiguous(),
+                          targets[:, cols], mask[:, cols],
+                          use_reentrant=False)
+        nll, m = nll + a, m + b
+    return nll / m.clamp_min(1.0)
+
+
 # ==========================================================================
 # Model-level API
 # ==========================================================================
+
+def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None,
+            batch_axes=("data",), act_spec=None, remat: bool = True):
+    """Next-token LM loss plus ``router_aux_weight`` times the MoE
+    load-balance loss.  batch: tokens (B, S), targets (B, S), mask (B, S)
+    (optional), plus ``patches`` (vlm) or ``frames`` (audio; and
+    ``enc_lengths``, optional).  ``remat``: each block (and each audio
+    encoder layer) under ``torch.utils.checkpoint``.  The port runs on one
+    card: ``mesh`` and ``act_spec`` must be None (a mesh is ROADMAP Queue
+    A item 12b), and ``batch_axes`` only names a mesh's axes."""
+    if mesh is not None or act_spec is not None:
+        raise NotImplementedError(
+            "loss_fn: meshes and activation sharding are not ported yet "
+            "(ROADMAP Queue A item 12b); pass mesh=None, act_spec=None")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _prepare_inputs(cfg, params, batch)
+    sin, cos = make_rope(torch.arange(S, device=tokens.device), cfg.hd,
+                         cfg.rope_theta)
+    cross_kv = enc_lengths = None
+    if cfg.family == "audio":
+        enc = _encode_audio(cfg, params, batch["frames"], remat=remat)
+        cross_kv = _cross_kv_from_encoder(cfg, params, enc)
+        enc_lengths = batch.get("enc_lengths")
+    x, r, aux = _run_stack(cfg, params, x, mode="train", cache=None,
+                           common=dict(sin=sin[None], cos=cos[None],
+                                       lengths=None),
+                           remat=remat, cross_kv=cross_kv,
+                           enc_lengths=enc_lengths)
+    loss = _chunked_lm_loss(cfg, params, x, r, batch["targets"],
+                            batch.get("mask"))
+    return loss + cfg.router_aux_weight * aux
+
 
 def prefill_fn(cfg: ModelConfig, params, batch, *, max_len: int):
     """Prefill: run the prompt, build the decode cache.

@@ -36,13 +36,6 @@ NOT_YET = {
          "batch_shardings", "cache_shardings", "make_cpu_mesh",
          "make_production_mesh", "param_shardings"],
         "ROADMAP Queue A item 12 (mesh and launch tools)"),
-    "models": dict.fromkeys(
-        ["Param", "loss_fn", "merge_params", "split_params"],
-        "ROADMAP Queue A item 11 (training)"),
-    "training": dict.fromkeys(
-        ["AdamWConfig", "OptState", "adamw_update", "init_opt_state",
-         "load_checkpoint", "make_train_step", "save_checkpoint", "train"],
-        "ROADMAP Queue A item 11 (training)"),
 }
 # packages the port does not mirror: the analysis passes scan the port
 # from the reference package (ROADMAP, Port rules)

@@ -302,6 +302,112 @@ class TestRMSNormPlain:
             rk.add_rms_norm(x, x, torch.ones(8, device="meta"))
 
 
+class TestRMSNormBackwardPlain:
+    """``rms_norm_bwd_plain`` against autograd through ``rms_norm_plain``
+    (and ``add_rms_norm_plain``) on the CPU; float32 within 1e-5 (the same
+    derivative, rounded in another order), bfloat16 within the kernel
+    tolerance."""
+
+    @pytest.mark.parametrize("shape", RMS_SHAPES + [(6, 4096)])
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("fused", [False, True])
+    def test_matches_autograd_of_plain(self, shape, dtype, fused):
+        _, tdt, tol = DTYPES[dtype]
+        tol = min(tol, 1e-5) if dtype == "float32" else tol
+        x, sc = _rms_inputs(shape, seed=11)
+        g, _ = _rms_inputs(shape, seed=12)
+        gs, _ = _rms_inputs(shape, seed=13)
+        xt = torch.from_numpy(x).to(tdt).requires_grad_(True)
+        rt = torch.zeros_like(xt).requires_grad_(True)
+        st = torch.from_numpy(sc).requires_grad_(True)
+        gt, gst = (torch.from_numpy(a).to(tdt) for a in (g, gs))
+        if fused:
+            s, out = rk.add_rms_norm_plain(xt, rt, st)
+            torch.autograd.backward((out, s), (gt, gst))
+            assert torch.equal(xt.grad, rt.grad)
+        else:
+            rk.rms_norm_plain(xt, st).backward(gt)
+        dx, dsc = rk.rms_norm_bwd_plain(xt.detach(), gt, st.detach(),
+                                        gs=gst if fused else None)
+        assert dx.dtype == tdt and dsc.dtype == torch.float32
+        np.testing.assert_allclose(_t32(dx), _t32(xt.grad), atol=tol,
+                                   rtol=tol)
+        np.testing.assert_allclose(dsc.numpy(), st.grad.numpy(),
+                                   atol=1e-4 * max(1.0, float(
+                                       st.grad.abs().max())), rtol=1e-5)
+
+    def test_cpu_wrapper_takes_plain_path(self):
+        x, sc = _rms_inputs((3, 64))
+        g, _ = _rms_inputs((3, 64), seed=1)
+        args = [torch.from_numpy(a) for a in (x, g, sc)]
+        before = rk.rms_norm_bwd.launches
+        got = rk.rms_norm_bwd(*args)
+        want = rk.rms_norm_bwd_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert rk.rms_norm_bwd.launches == before == 0
+
+    def test_cpu_autograd_runs_the_plain_forward(self):
+        """On the CPU the wrappers under autograd are the plain functions:
+        the same values and gradients, no launch counted."""
+        x, sc = _rms_inputs((4, 96))
+        r, _ = _rms_inputs((4, 96), seed=3)
+        grads = []
+        for fn in (ops.add_rms_norm, rk.add_rms_norm_plain):
+            xt, rt, st = (torch.from_numpy(a).requires_grad_(True)
+                          for a in (x, r, sc))
+            s, out = fn(xt, rt, st)
+            (out.square().sum() + s.sum()).backward()
+            grads.append((out.detach(), xt.grad, rt.grad, st.grad))
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
+        assert rk.rms_norm.launches == rk.rms_norm_bwd.launches == 0
+
+    def test_bwd_rows_per_cta(self):
+        assert rk.bwd_rows_per_cta(1) == rk.bwd_rows_per_cta(32) == 1
+        assert rk.bwd_rows_per_cta(512) == 1
+        assert rk.bwd_rows_per_cta(513) == 2
+        assert rk.bwd_rows_per_cta(8192) == 16
+
+
+class TestGradRefusal:
+    """A kernel without a backward refuses autograd on the card
+    (``kernels.grad.refuse_grad``); the condition is checked here, and the
+    CPU wrappers, whose plain paths autograd differentiates, pass the
+    gradient."""
+
+    def test_wants_grad_condition(self):
+        from repro_torch.kernels.grad import refuse_grad, wants_grad
+        a = torch.ones(2)
+        b = torch.ones(2, requires_grad=True)
+        assert not wants_grad(a, None)
+        assert wants_grad(a, b)
+        with torch.no_grad():
+            assert not wants_grad(a, b)
+            refuse_grad("k", b)
+        with pytest.raises(RuntimeError, match="item 14"):
+            refuse_grad("k", a, b)
+        refuse_grad("k", a, None)
+
+    def test_cpu_wrappers_pass_the_gradient(self):
+        q, kc, vc, lens = (torch.from_numpy(a) for a in _decode_inputs(
+            2, 4, 2, 16, 24, seed=5))
+        q.requires_grad_(True)
+        ops.decode_attention(q, kc, vc, lens).sum().backward()
+        assert q.grad is not None and torch.isfinite(q.grad).all()
+        qp, kp, vp, bt, pl = (torch.from_numpy(a) for a in _paged_inputs(
+            2, 4, 2, 16, 8, 3))
+        kp.requires_grad_(True)
+        ops.paged_decode_attention(qp, kp, vp, bt, pl,
+                                   block_size=8).sum().backward()
+        assert kp.grad is not None and kp.grad.abs().sum() > 0
+        sq, sk, sv, la, gt = (torch.from_numpy(a) for a in _ssm_inputs(
+            1, 32, 2, 8, 8))
+        sv.requires_grad_(True)
+        y, st = ops.ssm_chunk_scan(sq, sk, sv, la, gt, chunk=16)
+        (y.sum() + st.sum()).backward()
+        assert sv.grad is not None and torch.isfinite(sv.grad).all()
+
+
 class TestPagedAttentionPlain:
     @pytest.mark.parametrize("case", PAGED_CASES)
     @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -669,6 +775,89 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         np.testing.assert_allclose(_t32(got), _t32(rk.rms_norm_plain(xm, st)),
                                    atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("rows,width", [(32, 4096), (8192, 4096),
+                                            (7, 1024), (600, 2048),
+                                            (33, 8192), (5, 1001),
+                                            (3, 20480)])
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("fused", [False, True])
+    def test_rms_norm_bwd_kernel(self, cuda, rows, width, dtype, fused):
+        """The backward kernel against its plain version: dx within the
+        K2 tolerance, dscale within 1e-3 of its largest entry (float32
+        sums in another order); packed and scalar paths, one and many rows
+        a CTA; the same bits on a second call."""
+        _, tdt, tol = DTYPES[dtype]
+        x, sc = _rms_inputs((rows, width), seed=rows)
+        g, _ = _rms_inputs((rows, width), seed=rows + 1)
+        gs, _ = _rms_inputs((rows, width), seed=rows + 2)
+        xt, gt, gst = (torch.from_numpy(a).to(cuda, tdt) for a in (x, g, gs))
+        st = torch.from_numpy(sc).to(cuda)
+        gst = gst if fused else None
+        before = rk.rms_norm_bwd.launches
+        dx, dsc = rk.rms_norm_bwd(xt, gt, st, gs=gst)
+        dx2, dsc2 = rk.rms_norm_bwd(xt, gt, st, gs=gst)
+        torch.cuda.synchronize()
+        assert rk.rms_norm_bwd.launches == before + 2
+        wdx, wdsc = rk.rms_norm_bwd_plain(xt, gt, st, gs=gst)
+        np.testing.assert_allclose(_t32(dx), _t32(wdx), atol=tol, rtol=tol)
+        scale = float(wdsc.abs().max())
+        assert float((dsc - wdsc).abs().max()) <= 1e-3 * scale
+        assert torch.equal(dx, dx2) and torch.equal(dsc, dsc2)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_rms_norm_autograd_on_card(self, cuda, dtype):
+        """Under autograd the wrappers launch K2 forward and the backward
+        kernel, and the gradients match autograd through the plain
+        functions; without grad they launch K2 alone, as in serving."""
+        _, tdt, tol = DTYPES[dtype]
+        x, sc = _rms_inputs((64, 4096), seed=21)
+        r, _ = _rms_inputs((64, 4096), seed=22)
+        res = []
+        for card in (True, False):
+            dev = cuda if card else torch.device("cpu")
+            xt, rt = (torch.from_numpy(a).to(dev, tdt).requires_grad_(True)
+                      for a in (x, r))
+            st = torch.from_numpy(sc).to(dev).requires_grad_(True)
+            f0, b0 = rk.rms_norm.launches, rk.rms_norm_bwd.launches
+            s, h = rk.add_rms_norm(xt, rt, st)
+            out = rk.rms_norm(h, st)
+            (out.float().square().sum() + s.float().sum()).backward()
+            if card:
+                torch.cuda.synchronize()
+                assert rk.rms_norm.launches == f0 + 2
+                assert rk.rms_norm_bwd.launches == b0 + 2
+            res.append([t.detach().float().cpu() for t in
+                        (out, xt.grad, rt.grad, st.grad)])
+        for a, b in zip(res[0], res[1]):
+            torch.testing.assert_close(a, b, atol=tol * max(
+                1.0, float(b.abs().max())), rtol=tol)
+        xt = torch.from_numpy(x).to(cuda, tdt)
+        st = torch.from_numpy(sc).to(cuda)
+        f0, b0 = rk.rms_norm.launches, rk.rms_norm_bwd.launches
+        out = rk.rms_norm(xt, st)
+        assert out.grad_fn is None
+        assert rk.rms_norm.launches == f0 + 1
+        assert rk.rms_norm_bwd.launches == b0
+
+    def test_kernels_without_backward_refuse_grad(self, cuda):
+        q, kc, vc, lens = (torch.from_numpy(a).to(cuda) for a in
+                           _decode_inputs(2, 4, 2, 16, 24, seed=5))
+        with pytest.raises(RuntimeError, match="item 14"):
+            ops.decode_attention(q.requires_grad_(True), kc, vc, lens)
+        qp, kp, vp, bt, pl = (torch.from_numpy(a).to(cuda) for a in
+                              _paged_inputs(2, 4, 2, 16, 8, 3))
+        with pytest.raises(RuntimeError, match="item 14"):
+            ops.paged_decode_attention(qp, kp.requires_grad_(True), vp, bt,
+                                       pl, block_size=8)
+        sq, sk, sv, la, gt = (torch.from_numpy(a).to(cuda) for a in
+                              _ssm_inputs(1, 32, 2, 8, 8))
+        with pytest.raises(RuntimeError, match="item 14"):
+            ops.ssm_chunk_scan(sq, sk, sv.requires_grad_(True), la, gt,
+                               chunk=16)
+        with torch.no_grad():
+            ops.ssm_chunk_scan(sq, sk, sv, la, gt, chunk=16)
+        torch.cuda.synchronize()
 
     def test_add_rms_norm_rejects_mismatched_operands(self, cuda):
         x = torch.ones((4, 64), device=cuda)
