@@ -126,6 +126,22 @@ result line):
    ``engine_mode="ref"``: every decode step over all 32 slots; K3 and K2
    as above).  Counters zeroed just before and read just
    after each; each engine is freed before the next.
+   The mesh path (``phase_mesh_path``): a one-rank process group (NCCL
+   for the card, gloo for the CPU) and a (1, 1) ("data", "model") mesh.
+   ``decode_attention_lsharded`` against K3 on the same inputs; full
+   granite-8b (seeded bf16), ``prefill_fn`` on the launcher's 32 prompts
+   at ``max_len`` 256 and 8 ``decode_fn`` steps, ``mesh=None`` and under
+   the mesh with ``kv_shard="none"`` (bit for bit) and ``"length"``
+   (within 2e-2 of the largest logit), counters zeroed just before the
+   two mesh runs and read just after (K2 and K3 on every layer); one
+   full qwen3-moe-30b-a3b ``moe_ffn`` under the mesh bit-identical to
+   ``mesh=None``; granite-8b-smoke and qwen3-moe-30b-a3b-smoke on a gloo
+   CPU mesh against the NCCL card mesh; two dry-run pairs
+   (``launch/dryrun.py``, granite-8b x decode_32k with ``--decode-opt``
+   and qwen3-moe-30b-a3b x decode_32k) and the roofline over their
+   records, as subprocesses, their numbers modelled.
+   ``python3 chip_smoke.py --phase mesh`` runs this path alone after the
+   build (no result line).
 8. The device-loop path: ``make_device_serving_loop`` at G=32 x B=16,
    wait_cap 1024, 1,024 requests (the demo's bimodal mix scaled by 8),
    in chunks of 16 steps until it drains (at most 400).  Every request
@@ -144,7 +160,8 @@ result line):
 
 The second-to-last line is ``{"kernels": [...]}`` (each kernel's launches
 by path under ``launches_by_path``: engine, moe, vlm, fleet, the four
-slot paths, ``slot_granite_ref``, ``device_loop`` and ``train``; the
+slot paths, ``slot_granite_ref``, ``mesh``, ``device_loop`` and
+``train``; the
 serving paths must launch no ``rms_norm_bwd``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is disabled for matmuls and
 cuDNN so float32 comparisons are float32.
@@ -1863,6 +1880,281 @@ def phase_train_path(card: str) -> dict:
     return launches
 
 
+def _mesh_group() -> None:
+    """One rank, NCCL for CUDA tensors and gloo for CPU ones, on a free
+    localhost port."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+
+
+def _full(t):
+    """A DTensor's global value (the tensor itself when plain)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _mesh_generate(cfg, params, batch, mesh, steps, *, kv="none",
+                   feed=None, max_len=256):
+    """Prefill and ``steps`` greedy decode steps of ``decode_fn`` (under
+    ``mesh`` when given, its params and batch placed by the rules).
+    ``feed``: the tokens to decode from (teacher forcing), else each step's
+    own argmax.  Returns (logits of every call, tokens fed, decode ms a
+    step on the host clock)."""
+    from repro_torch.launch.mesh import (batch_shardings, distribute_tree,
+                                         param_shardings)
+    from repro_torch.models import decode_fn, param_axes, prefill_fn
+    if mesh is not None:
+        params = distribute_tree(
+            params, param_shardings(param_axes(cfg), cfg, mesh))
+        batch = distribute_tree(
+            batch, batch_shardings(batch, mesh, batch["tokens"].shape[0]))
+    logits_all, toks, ms = [], [], []
+    with torch.no_grad():
+        logits, cache = prefill_fn(cfg, params, batch, max_len=max_len,
+                                   mesh=mesh)
+        logits_all.append(_full(logits).float().cpu())
+        for i in range(steps):
+            tok = feed[i] if feed is not None else \
+                logits_all[-1].argmax(-1).to(torch.int32)
+            toks.append(tok)
+            tok_d = tok.to(batch["tokens"].device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kw = {} if mesh is None else dict(mesh=mesh, kv_shard=kv)
+            logits, cache = decode_fn(cfg, params, cache, tok_d, **kw)
+            logits_all.append(_full(logits).float().cpu())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    del cache, params
+    return logits_all, toks, ms
+
+
+def _prompt_batch(vocab_size: int, n: int, seed: int, dev):
+    """The launcher's stream (prompts of 4..63 tokens), right-padded."""
+    from repro_torch.launch.serve import _synthetic
+    reqs = _synthetic(vocab_size, n, 8, seed)
+    S = max(len(r.tokens) for r in reqs)
+    toks = np.zeros((n, S), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.tokens)] = r.tokens
+    lens = np.array([len(r.tokens) for r in reqs], np.int32)
+    return {"tokens": torch.from_numpy(toks).to(dev),
+            "lengths": torch.from_numpy(lens).to(dev)}
+
+
+def _agree(name, got, want, *, tol=None, rel=None, gap=0.0):
+    """Each call's logits against ``want``'s: within ``tol`` (atol, rtol)
+    elementwise, or with ``rel`` within ``rel`` times the call's largest
+    |logit|, or (neither) equal bit for bit; the argmax equal wherever
+    ``want``'s top-2 gap exceeds ``gap`` (with ``rel``: ``rel`` times the
+    largest |logit|).  Returns (max abs err, positions checked, near ties
+    skipped)."""
+    err, seen, ties = 0.0, 0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(torch.isfinite(g).all().item(), f"{name}: call {i} "
+                                              f"non-finite")
+        e = (g - w).abs()
+        if tol is not None:
+            ok = (e <= tol["atol"] + tol["rtol"] * w.abs()).all().item()
+        elif rel is not None:
+            gap = rel * float(w.abs().max())
+            ok = float(e.max()) <= gap
+        else:
+            ok = torch.equal(g, w)
+        check(ok, f"{name}: call {i} logits max abs err "
+                  f"{e.max().item():.3e} (largest |logit| "
+                  f"{w.abs().max().item():.3e})")
+        err = max(err, float(e.max()))
+        top2 = torch.topk(w, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > gap
+        check(torch.equal(g.argmax(-1)[clear], w.argmax(-1)[clear]),
+              f"{name}: call {i} greedy token differs at a clear top-2 gap")
+        seen += int(clear.sum())
+        ties += int((~clear).sum())
+    return err, seen, ties
+
+
+def phase_mesh_path(dev, card: str) -> dict:
+    """Serving under a (1, 1) ("data", "model") mesh on the card: a
+    one-rank group, NCCL for the card and gloo for the CPU.  (1) Full-width
+    granite-8b, prefill of the launcher's 32 prompts at ``max_len`` 256
+    and 8 decode steps, ``mesh=None`` and then under the mesh with
+    ``kv_shard="none"`` (K3 on the shards) and ``"length"`` (the plain
+    length-sharded flash-decode and its all-reduces), both fed
+    ``mesh=None``'s greedy tokens.  ``"none"`` must give ``mesh=None``'s
+    logits bit for bit.  ``"length"`` computes the attention as the
+    reference's flash-decode does, rounding the unnormalised
+    probabilities to bf16 where K3 rounds the normalised ones: first the
+    two are held to 2e-2 on the same inputs at the path's shape (B=32,
+    Hq=32, Hkv=8, hd=128, L=256), then end to end each call's logits
+    within 2e-2 of its largest |logit| (1-2 bf16 ulps of a logit: 36 bf16
+    layers carry the attention's one-ulp differences there) and greedy
+    tokens equal wherever the top-2 gap exceeds that.  Launch counters
+    zeroed just before the two mesh runs and read just after.  (2) One
+    full-width qwen3-moe-30b-a3b ``moe_ffn`` (128 experts top-8, d 2048, f
+    768, bf16) under the mesh, bit-identical to ``mesh=None``.  (3) granite-8b-smoke
+    and qwen3-moe-30b-a3b-smoke in float32, a gloo (1, 1) mesh on the CPU
+    against the NCCL one on the card, 8 decode steps.  (4) Two dry-run
+    pairs in subprocesses on this host's torch, started first, and the
+    roofline over their records.  Returns the launch counts of (1)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import _make_mesh
+    from repro_torch.models import init_params, moe
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    pairs = {"granite-8b --decode-opt": ["--arch", "granite-8b",
+                                         "--decode-opt"],
+             "qwen3-moe-30b-a3b": ["--arch", "qwen3-moe-30b-a3b"]}
+    t_dry = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *a, "--shape",
+         "decode_32k", "--mesh", "single", "--out", out_dir], env=env,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, a in pairs.items()}
+    _free()
+    _mesh_group()
+    try:
+        mesh = _make_mesh((1, 1), ("data", "model"), "cuda")
+        cpu_mesh = _make_mesh((1, 1), ("data", "model"), "cpu")
+        g = torch.Generator().manual_seed(45)
+        B, Hq, Hkv, hd, L = 32, 32, 8, 128, 256
+        q = torch.randn(B, Hq, hd, generator=g).to(dev, torch.bfloat16)
+        k, v = (torch.randn(B, L, Hkv, hd, generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+        lens = torch.randint(1, L + 1, (B,), generator=g)
+        lens[:2] = torch.tensor([1, L])
+        lens = lens.to(dev, torch.int32)
+        from repro_torch.kernels import ops
+        from repro_torch.models.attention import decode_attention_lsharded
+        with torch.no_grad():
+            k3 = ops.decode_attention(q, k, v, lens)
+            lsh = decode_attention_lsharded(q, k, v, lens,
+                                            mesh=mesh).full_tensor()
+        err = (lsh.float() - k3.float()).abs()
+        check((err <= TOL["atol"] + TOL["rtol"] * k3.float().abs()).all()
+              .item(), f"mesh decode_attention_lsharded against K3: max "
+                       f"abs err {err.max().item():.3e}")
+        print(f"mesh attention: decode_attention_lsharded under the (1, 1) "
+              f"NCCL mesh against K3 on the same inputs (B=32, Hq=32, "
+              f"Hkv=8, hd=128, L=256, bf16, lengths 1..256): max abs err "
+              f"{err.max().item():.3e}")
+        del q, k, v, k3, lsh
+        cfg = get_config("granite-8b")
+        t0 = time.perf_counter()
+        params = init_params(cfg, 0, device=dev)
+        batch = _prompt_batch(cfg.vocab_size, 32, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        want, feed, ms0 = _mesh_generate(cfg, params, batch, None, 8)
+        launches = _zero_and_read(None)
+        runs = {kv: _mesh_generate(cfg, params, batch, mesh, 8, kv=kv,
+                                   feed=feed) for kv in ("none", "length")}
+        torch.cuda.synchronize()
+        launches = _zero_and_read(launches)
+        del params
+        _free()
+        for kv, (got, _, ms) in runs.items():
+            err, seen, ties = _agree(
+                f"mesh granite-8b kv_shard={kv}", got, want,
+                rel=2e-2 if kv == "length" else None, gap=2e-2)
+            print(f"mesh path MEASURED on {card}: granite-8b (36 layers, "
+                  f"d=4096, bf16) B=32, max_len 256, (1, 1) NCCL mesh, "
+                  f"kv_shard={kv}: decode step {np.mean(ms[1:]):.2f} ms "
+                  f"(mean of steps 2-8; mesh=None {np.mean(ms0[1:]):.2f} "
+                  f"ms); logits max abs err {err:.3e} against mesh=None "
+                  f"over 9 calls, {seen} greedy tokens equal, {ties} near "
+                  f"ties skipped")
+        n_norm = 2 * cfg.n_layers + 1
+        need = {"rms_norm": 2 * (n_norm * 9),
+                "decode_attention": cfg.n_layers * 8}
+        for name, lo in need.items():
+            check(launches[name] >= lo,
+                  f"mesh path: {name} launched {launches[name]} times, "
+                  f"need >= {lo}")
+        print(f"mesh path: granite-8b init {init_s:.2f} s; launches "
+              f"{launches}")
+
+        for T, S, seed in ((32, 1, 43), (4, 64, 44)):
+            x, p = _moe_inputs(T, S, 2048, 128, 768, 8, seed=seed)
+            x = x.to(dev, torch.bfloat16)
+            p = {n: v.to(dev, torch.float32 if n == "router"
+                          else torch.bfloat16) for n, v in p.items()}
+            with torch.no_grad():
+                plain, _ = moe.moe_ffn(x, p, n_experts=128, k=8,
+                                       aux_loss=False)
+                sharded, _ = moe.moe_ffn(x, p, n_experts=128, k=8,
+                                         mesh=mesh, aux_loss=False)
+            check(torch.equal(plain, sharded),
+                  f"mesh moe_ffn ({T}, {S}): differs from mesh=None")
+            print(f"mesh moe: moe_ffn ({T}, {S}, 2048) bf16, 128 experts "
+                  f"top-8 of 768, under the (1, 1) NCCL mesh: bit-identical "
+                  f"to mesh=None")
+            del x, p, plain, sharded
+
+        for arch in ("granite-8b", "qwen3-moe-30b-a3b"):
+            scfg = dataclasses.replace(get_smoke_config(arch),
+                                       dtype="float32")
+            p_cpu = init_params(scfg, 0, device="cpu")
+            b_cpu = _prompt_batch(scfg.vocab_size, 8, 3, "cpu")
+            want, feed, _ = _mesh_generate(scfg, p_cpu, b_cpu, cpu_mesh, 8)
+            got, _, _ = _mesh_generate(
+                scfg, _tree_to(p_cpu, dev), _tree_to(b_cpu, dev), mesh, 8,
+                feed=feed)
+            err, seen, ties = _agree(f"mesh cross-device {scfg.name}", got,
+                                     want, tol=dict(atol=1e-4, rtol=1e-4),
+                                     gap=1e-4)
+            print(f"mesh cross-device: {scfg.name} f32, gloo (1, 1) mesh on "
+                  f"the CPU against the NCCL (1, 1) mesh on the card, prefill"
+                  f" + 8 decode steps: logits within {err:.3e}, {seen} greedy "
+                  f"tokens equal, {ties} near ties skipped")
+    finally:
+        dist.destroy_process_group()
+
+    for what, proc in procs.items():
+        try:
+            so, se = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        check(proc.returncode == 0, f"dry run {what}: exit "
+                                    f"{proc.returncode}\n{so[-2000:]}"
+                                    f"{se[-3000:]}")
+    print(f"dry run: 2 pairs in {time.perf_counter() - t_dry:.1f} s "
+          f"(subprocesses, torch {torch.__version__})")
+    for what, name in (("granite-8b --decode-opt", "granite-8b"),
+                       ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b")):
+        with open(os.path.join(out_dir,
+                               f"{name}__decode_32k__single.json")) as f:
+            rec = json.load(f)
+        check(rec["ok"], f"dry run {what}: {rec.get('error')}")
+        c = rec["collectives"]
+        print(f"dry run MODELLED (fake tensors on a fake group of "
+              f"{rec['chips']}, not measured): {what} x decode_32k x "
+              f"single: {rec['cost']['flops']:.4e} FLOPs a card, argument "
+              f"{rec['memory']['argument_size_in_bytes']} B, output "
+              f"{rec['memory']['output_size_in_bytes']} B, collectives "
+              f"{c['counts_by_op']} ({c['total_bytes']:.4e} B; all-reduce "
+              f"by reduction {c['all_reduce_by_op']})")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline",
+                        "--dir", out_dir], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    check(r.returncode == 0, f"roofline: {r.stderr[-2000:]}")
+    print("roofline MODELLED (dry-run records and H100 data-sheet "
+          "constants, not measured):")
+    for line in r.stdout.splitlines():
+        print(f"  {line}")
+    return launches
+
+
 def _free() -> None:
     """Release a finished path's device memory: the wrapped ``decode``
     methods of the fleet's counting hook form reference cycles, so
@@ -1935,6 +2227,13 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
+
+    if sys.argv[1:2] == ["--phase"]:
+        # one path alone, for a quick check (not the smoke run: no result
+        # line); the only one so far is "mesh"
+        check(sys.argv[2:3] == ["mesh"], f"unknown phase {sys.argv[2:]}")
+        print(json.dumps({"mesh": phase_mesh_path(dev, card)}))
+        return
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     kernels = [phase_rms_norm(dev), phase_rms_norm_bwd(dev)]
@@ -2011,6 +2310,7 @@ def main() -> None:
                   "slot_whisper": phase_slot_path("whisper-tiny", 32),
                   "slot_granite_ref": phase_slot_path("granite-8b", 32,
                                                       engine_mode="ref"),
+                  "mesh": phase_mesh_path(dev, card),
                   "device_loop": phase_device_loop_path(),
                   "train": phase_train_path(card)})
 

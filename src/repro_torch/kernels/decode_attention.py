@@ -30,15 +30,20 @@ produces) writes zeros in both versions.
 :func:`decode_attention` is the wrapper: on a CPU tensor it runs
 :func:`decode_attention_plain`; on a CUDA tensor it launches the kernel or
 raises.  ``decode_attention.launches`` counts the calls that launched it
-(one per call, though a call runs two CUDA kernels).
+(one per call, though a call runs two CUDA kernels).  On DTensors (a
+model under a mesh) it runs on each local shard with the batch rows and
+the KV heads (and their query heads) as the cache shards them, and the
+length and ``hd`` whole.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from .grad import refuse_grad
+from .sharded import as_dtensor, is_dtensor, kept, on_shards
 
 __all__ = ["decode_attention", "decode_attention_plain", "live_span"]
 
@@ -107,6 +112,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      rolling: bool = False) -> torch.Tensor:
     """q: (B, Hq, hd); k_cache/v_cache: (B, L, Hkv, hd) in q's dtype;
     lengths: (B,) int32.  Returns (B, Hq, hd) in q's dtype."""
+    if is_dtensor(q) or is_dtensor(k_cache):
+        return _on_shards(q, k_cache, v_cache, lengths, sliding_window,
+                          rolling)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       sliding_window=sliding_window,
@@ -169,6 +177,20 @@ def _launch(q, k_cache, v_cache, lengths, sliding_window=0, rolling=False,
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
     return out
+
+
+def _on_shards(q, k_cache, v_cache, lengths, sliding_window, rolling):
+    mesh = (q if is_dtensor(q) else k_cache).device_mesh
+    q, k_cache, v_cache, lengths = (as_dtensor(t, mesh) for t in
+                                    (q, k_cache, v_cache, lengths))
+    kv = kept(k_cache, {0: 0, 2: 2})
+    qp = tuple(Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+               else Replicate() for p in kv)
+    lp = tuple(p if p == Shard(0) else Replicate() for p in kv)
+    return on_shards(
+        lambda a, b, c, d: decode_attention(
+            a, b, c, d, sliding_window=sliding_window, rolling=rolling),
+        (q, k_cache, v_cache, lengths), (qp, kv, kv, lp), qp, mesh)
 
 
 decode_attention.launches = 0

@@ -18,6 +18,8 @@ from .bfio_swap import swap_best
 from .decode_attention import decode_attention
 from .paged_attention import paged_decode_attention
 from .rms_norm import add_rms_norm, rms_norm
+from .sharded import is_dtensor
+from .ssm_scan import on_shards as _ssm_on_shards
 from .ssm_scan import ssm_chunk_scan as _ssm_chunk_scan
 
 __all__ = ["on_cuda", "rms_norm", "add_rms_norm", "paged_decode_attention",
@@ -32,7 +34,12 @@ def ssm_chunk_scan(q, k, v, log_decay, gate, *, chunk: int = 128,
                    initial_state: Optional[torch.Tensor] = None):
     """Gated linear-attention scan (see ssm_scan.py) on any S: pads S with
     zero steps (no decay, no input) up to a multiple of ``chunk``, as the
-    reference's ``ops.ssm_chunk_scan`` does, and drops them from y."""
+    reference's ``ops.ssm_chunk_scan`` does, and drops them from y.  On
+    DTensors the whole of it runs on each local shard (the batch rows as
+    v shards them)."""
+    if is_dtensor(q) or is_dtensor(v):
+        return _ssm_on_shards(ssm_chunk_scan, q, k, v, log_decay, gate,
+                              chunk=chunk, initial_state=initial_state)
     S = q.shape[1]
     pad = (-S) % chunk
     if pad:

@@ -27,6 +27,10 @@ call combines each row's live splits.  The bf16 kernel needs
 :func:`paged_decode_attention_plain`; on a CUDA tensor it launches the
 kernel or raises.  ``paged_decode_attention.launches`` counts the calls
 that launched it (one per call, though a call runs two CUDA kernels).
+On DTensors (a model under a mesh) it runs on each local shard with the
+pools' KV heads (and their query heads) as the pools shard them, the
+query rows, tables and lengths as q shards its batch, and the pools'
+blocks and ``hd`` whole.
 """
 from __future__ import annotations
 
@@ -34,8 +38,10 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from .grad import refuse_grad
+from .sharded import as_dtensor, is_dtensor, kept, on_shards
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "paged_decode_attention_ref"]
@@ -108,6 +114,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """q: (B, Hq, hd); k_pool/v_pool: (n_blocks, block_size, Hkv, hd) of
     one layer, in q's dtype; block_tables: (B, max_blocks) int32;
     lengths: (B,) int32.  Returns (B, Hq, hd) in q's dtype."""
+    if is_dtensor(q) or is_dtensor(k_pool):
+        return _on_shards(q, k_pool, v_pool, block_tables, lengths,
+                          block_size)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths, block_size)
@@ -174,6 +183,23 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, *,
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")
     return out
+
+
+def _on_shards(q, k_pool, v_pool, block_tables, lengths, block_size):
+    mesh = (q if is_dtensor(q) else k_pool).device_mesh
+    q, k_pool, v_pool, block_tables, lengths = (
+        as_dtensor(t, mesh) for t in (q, k_pool, v_pool, block_tables,
+                                      lengths))
+    pool = kept(k_pool, {2: 2})
+    rows = kept(q, {0: 0})
+    qp = tuple(Shard(1) if p == Shard(2) else r
+               for p, r in zip(pool, rows))
+    bp = tuple(p if p == Shard(0) else Replicate() for p in qp)
+    return on_shards(
+        lambda a, b, c, d, e: paged_decode_attention(
+            a, b, c, d, e, block_size=block_size),
+        (q, k_pool, v_pool, block_tables, lengths),
+        (qp, pool, pool, bp, bp), qp, mesh)
 
 
 paged_decode_attention.launches = 0

@@ -25,6 +25,9 @@ same source; it has no TPU counterpart).  It counts its launches on
 ``rms_norm_bwd.launches``; :func:`rms_norm_bwd_plain` is its plain
 version.  Without grad (serving) the wrappers launch directly, as before;
 on a CPU tensor autograd runs through the plain forward.
+
+On a DTensor (a model under a mesh) both wrappers run on each local shard
+with the normalised last dim whole (:mod:`repro_torch.kernels.sharded`).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import Optional
 import torch
 
 from .grad import wants_grad
+from .sharded import as_dtensor, is_dtensor, kept, on_shards, replicated
 
 __all__ = ["rms_norm", "rms_norm_plain", "add_rms_norm",
            "add_rms_norm_plain", "rms_norm_bwd", "rms_norm_bwd_plain"]
@@ -232,6 +236,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     """x: (..., d) float32/bfloat16; scale: (d,) float32 (any float dtype
     when autograd takes the kernel's Function, which widens it).  Returns
     x's shape and dtype."""
+    if is_dtensor(x):
+        return _on_shards(x, None, scale, eps)
     if x.device.type == "cpu":
         return rms_norm_plain(x, scale, eps)
     _check_device(x)
@@ -246,6 +252,8 @@ def add_rms_norm(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
     normed)``.  x, r: (..., d) of one shape and dtype.  ``s`` is rounded to
     that dtype before the norm reads it, so on aligned rows the result
     equals ``rms_norm(x + r)`` through the kernel bit for bit."""
+    if is_dtensor(x) or is_dtensor(r):
+        return _on_shards(x, r, scale, eps)
     if x.device.type == "cpu":
         return add_rms_norm_plain(x, r, scale, eps)
     _check_device(x)
@@ -258,6 +266,19 @@ def add_rms_norm(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
                                  scale.float(), eps)
     out, s = _launch(x, r, scale, eps)
     return s, out
+
+
+def _on_shards(x, r, scale, eps):
+    """The wrappers on DTensors: every dim but the last may stay sharded."""
+    mesh = (x if is_dtensor(x) else r).device_mesh
+    x, r, scale = (as_dtensor(t, mesh) for t in (x, r, scale))
+    pl = kept(x, {i: i for i in range(x.dim() - 1)})
+    rep = replicated(mesh)
+    if r is None:
+        return on_shards(lambda a, s: rms_norm(a, s, eps), (x, scale),
+                         (pl, rep), pl, mesh)
+    return on_shards(lambda a, b, s: add_rms_norm(a, b, s, eps),
+                     (x, r, scale), (pl, pl, rep), (pl, pl), mesh)
 
 
 rms_norm.launches = 0

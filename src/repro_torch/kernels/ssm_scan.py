@@ -30,6 +30,9 @@ both passes before any launch and refuses what does not fit.
 :func:`ssm_chunk_scan` is the wrapper: on a CPU tensor it runs
 :func:`ssm_chunk_scan_plain`; on a CUDA tensor it launches both passes or
 raises.  ``ssm_chunk_scan.launches`` counts calls that launched them.
+On DTensors (a model under a mesh) :func:`on_shards` runs a scan on each
+local shard with the batch rows as v shards them and the time axis, the
+heads and the state dims whole.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from .grad import refuse_grad
+from .sharded import as_dtensor, is_dtensor, kept
+from .sharded import on_shards as _on_shards
 
 __all__ = ["ssm_chunk_scan", "ssm_chunk_scan_plain", "plan", "Plan",
            "scores_pass"]
@@ -214,6 +219,9 @@ def ssm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log_decay, gate: (B, S, H) float32; S a multiple of ``chunk`` (<= 128);
     initial_state: (B, H, dk, dv) float32 or None.  Returns (y (B, S, H,
     dv) in v's dtype, final state (B, H, dk, dv) float32)."""
+    if is_dtensor(q) or is_dtensor(v):
+        return on_shards(ssm_chunk_scan, q, k, v, log_decay, gate,
+                         chunk=chunk, initial_state=initial_state)
     if q.device.type == "cpu":
         return ssm_chunk_scan_plain(q, k, v, log_decay, gate, chunk=chunk,
                                     initial_state=initial_state)
@@ -259,6 +267,23 @@ def ssm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(p, q, k, v, log_decay, gate, initial_state, y, state, chunk)
     ssm_chunk_scan.launches += 1
     return y, state
+
+
+def on_shards(scan, q, k, v, log_decay, gate, *, chunk: int,
+              initial_state=None):
+    """``scan`` (this wrapper, or ``ops.ssm_chunk_scan``) on DTensors."""
+    mesh = (q if is_dtensor(q) else v).device_mesh
+    q, k, v, log_decay, gate, initial_state = (
+        as_dtensor(t, mesh) for t in (q, k, v, log_decay, gate,
+                                      initial_state))
+    pl = kept(v, {0: 0})
+    args = (q, k, v, log_decay, gate)
+    if initial_state is None:
+        return _on_shards(lambda *a: scan(*a, chunk=chunk), args,
+                          (pl,) * 5, (pl, pl), mesh)
+    return _on_shards(
+        lambda *a: scan(*a[:5], chunk=chunk, initial_state=a[5]),
+        args + (initial_state,), (pl,) * 6, (pl, pl), mesh)
 
 
 ssm_chunk_scan.launches = 0

@@ -1,4 +1,4 @@
-"""Roofline analysis from the compiled dry-run artifacts.
+"""Roofline analysis from the dry-run records.
 
 Three terms per (arch x shape), single-pod mesh, NVIDIA H100 SXM
 constants (:class:`HW`; ``H100`` is the default everywhere):
@@ -13,10 +13,13 @@ Sources and caveats:
     loop body once and so under-counts scanned layers and
     gradient-accumulation loops; the compiled program's FLOPs are
     reported alongside.
-  * Collective bytes are parsed from an optimized XLA HLO text dump with
-    **trip-count correction**: each collective inside a while body is
-    multiplied by the product of enclosing loop trip counts (recovered
-    from the loop condition's comparison constant).
+  * Collective bytes are the dry run's (:mod:`repro_torch.launch.dryrun`):
+    rank 0's collectives as one eager step on a fake process group runs
+    them, each call counted, so no loop correction is needed.  The
+    reference parses them from an optimized XLA HLO text dump, each
+    collective inside a while body multiplied by its loops' trip counts;
+    :func:`corrected_collectives` keeps that parser for its records
+    (``collectives_corrected``, read first when present).
   * MODEL_FLOPS = 6*N*D (dense) or 6*N_active*D (MoE); the ratio
     MODEL_FLOPS / analytic FLOPs (with the remat pass) exposes
     remat/attention overhead.
@@ -28,7 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import glob
-import gzip
 import json
 import os
 import re
@@ -41,7 +43,7 @@ __all__ = ["HW", "H100", "analytic_flops", "analytic_bytes",
            "corrected_collectives", "analyze_record", "main"]
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                           "benchmarks", "results", "dryrun")
+                           "build", "dryrun")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,13 +270,15 @@ def analyze_record(rec: dict, hw: HW = H100) -> dict:
 
     fl = analytic_flops(cfg, shape)
     by = analytic_bytes(cfg, shape)
+    # the port's records hold the eager step's own counts in
+    # "collectives"; a reference record's loop-corrected HLO sums first
     coll = rec.get("collectives_corrected") or rec.get("collectives") or {}
     coll_bytes = coll.get("total_bytes", 0.0)
 
     t_compute = fl["with_remat"] / (chips * hw.peak_flops)
     t_memory = by["total"] / (chips * hw.hbm_bw)
-    # collective bytes in the HLO are per-device program traffic, over
-    # the card's one NVLink rate
+    # collective bytes are one card's traffic, over the card's one NVLink
+    # rate
     t_coll = coll_bytes / hw.ici_bw
 
     terms = {"compute": t_compute, "memory": t_memory,
@@ -319,12 +323,8 @@ def main() -> None:
     rows = []
     for path in sorted(glob.glob(os.path.join(args.dir,
                                               f"*__{args.mesh}.json"))):
-        rec = json.load(open(path))
-        gz = path.replace(".json", ".hlo.gz")
-        if os.path.exists(gz) and "collectives_corrected" not in rec:
-            text = gzip.open(gz, "rt").read()
-            rec["collectives_corrected"] = corrected_collectives(text)
-        rows.append(analyze_record(rec))
+        with open(path) as f:
+            rows.append(analyze_record(json.load(f)))
 
     hdr = (f"{'arch':24s} {'shape':12s} {'comp(ms)':>9s} {'mem(ms)':>9s} "
            f"{'coll(ms)':>9s} {'dominant':>10s} {'useful':>7s}")

@@ -6,8 +6,8 @@ dtype; ``--smoke`` takes the reduced same-family variant, and ``--device
 cpu`` runs the plain PyTorch path on the CPU.  The weights are the port's
 seeded random init (seed 0) and the data ``token_batches``, with the
 reference's zero stubs for the vlm patches and the audio frames.  One card
-only: ``--multi-pod`` (the reference's production mesh) is ROADMAP Queue
-A item 12b.
+only: ``--multi-pod`` (training on the reference's production mesh) is
+ROADMAP Queue A item 12c.
 """
 from __future__ import annotations
 
@@ -43,8 +43,9 @@ def main(argv=None) -> list[float]:
     args = build_parser().parse_args(argv)
     if args.multi_pod:
         raise NotImplementedError(
-            "--multi-pod: meshes are not ported yet (ROADMAP Queue A item "
-            "12b); the port trains on one card")
+            "--multi-pod: training under a mesh is not ported yet (ROADMAP "
+            "Queue A item 12c; item 12b ported the mesh for serving); the "
+            "port trains on one card")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     print(f"[train] {cfg.name}: {cfg.n_params()/1e6:.1f}M params, "

@@ -14,6 +14,7 @@ from .transformer import (  # noqa: F401
     loss_fn,
     paged_chunk_prefill_fn,
     paged_decode_fn,
+    param_axes,
     prefill_fn,
     resolve_device,
     supports_paged_stack,

@@ -28,6 +28,11 @@ reference's jnp code, not a Pallas kernel, so plain PyTorch is its port;
 its roundings are the reference's (the pre-scaled query rounded to K's
 dtype in the forward, the backward in float32), which
 ``scaled_dot_product_attention`` does not give.
+
+Under a mesh, :func:`decode_attention_lsharded` is the reference's
+distributed flash-decode over a cache sharded along its length: plain
+products on each shard and three all-reduces over the model axis, as the
+reference computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -37,9 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.sharded import is_dtensor
 
 __all__ = ["causal_attention", "blocked_causal_attention", "chunk_attention",
-           "cross_attention", "decode_attention"]
+           "cross_attention", "decode_attention",
+           "decode_attention_lsharded"]
 
 _NEG = -1e30
 
@@ -55,6 +62,46 @@ def _group_q(q, n_kv: int):
     return q.reshape(b, s, n_kv, hq // n_kv, hd)
 
 
+def _attend_on_shards(fn, q, k, v, lengths, **kw):
+    """``fn`` (a prefill attention) on DTensors, on each rank's shards:
+    the batch rows and the query heads as q shards them, K/V's heads cut
+    the same way where they divide, else whole on every rank and each
+    local query head given its own KV head (a (Hkv, G) split of sharded
+    query heads has no DTensor layout; each score is the same product of
+    the same two rows); the sequence and ``hd`` whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..kernels.sharded import as_dtensor, kept, on_shards
+    mesh = q.device_mesh
+    q, k, v, lengths = (as_dtensor(t, mesh) for t in (q, k, v, lengths))
+    hq, hkv = q.shape[2], k.shape[2]
+    qp = kept(q, {0: 0, 2: 2})
+    cut = [i for i, p in enumerate(qp) if p == Shard(2)]
+    n_cut = 1
+    for i in cut:
+        n_cut *= mesh.size(i)
+    kv_cut = hkv % n_cut == 0
+    kvp = tuple(p if p == Shard(0) or (p == Shard(2) and kv_cut)
+                else Replicate() for p in qp)
+
+    def local(ql, kl, vl, *ll):
+        if not kv_cut:
+            size, h0 = hq, 0
+            for i in cut:
+                size //= mesh.size(i)
+                h0 += mesh.get_local_rank(i) * size
+            idx = (h0 + torch.arange(ql.shape[2], device=ql.device)) \
+                // (hq // hkv)
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return fn(ql, kl, vl, lengths=ll[0] if ll else None, **kw)
+
+    args, pls = (q, k, v), (qp, kvp, kvp)
+    if lengths is not None:
+        args += (lengths,)
+        pls += (tuple(p if p == Shard(0) else Replicate() for p in qp),)
+    return on_shards(local, args, pls, qp, mesh)
+
+
 def causal_attention(q, k, v, *, q_offset: int = 0, sliding_window: int = 0,
                      lengths: Optional[torch.Tensor] = None):
     """Causal self-attention.  q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd);
@@ -64,7 +111,12 @@ def causal_attention(q, k, v, *, q_offset: int = 0, sliding_window: int = 0,
     scores are set to -1e30, then an additive -1e30 bias carries the
     ragged ``lengths``.  The pre-scaled query and the probabilities are
     rounded to the K/V dtype before the fp32-accumulated products, as in
-    the reference.  Returns (B, Sq, Hq, hd) in q's dtype."""
+    the reference.  Returns (B, Sq, Hq, hd) in q's dtype.  On DTensors it
+    runs on each rank's shards (:func:`_attend_on_shards`)."""
+    if is_dtensor(q):
+        return _attend_on_shards(causal_attention, q, k, v, lengths,
+                                 q_offset=q_offset,
+                                 sliding_window=sliding_window)
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     qf = (_group_q(q, hkv).float() * _scale(hd, q.device)).to(k.dtype)
@@ -277,7 +329,10 @@ def cross_attention(q, k, v, *, lengths: Optional[torch.Tensor] = None):
     encoder positions, or None for all.  Unlike the causal and decode
     paths, the reference keeps the pre-scaled query, the scores and the
     probabilities in float32 here, and masks with ``where`` rather than an
-    additive bias.  Returns (B, Sq, Hq, hd) in q's dtype."""
+    additive bias.  Returns (B, Sq, Hq, hd) in q's dtype.  On DTensors it
+    runs on each rank's shards (:func:`_attend_on_shards`)."""
+    if is_dtensor(q):
+        return _attend_on_shards(cross_attention, q, k, v, lengths)
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     qf = _group_q(q, hkv).float() * _scale(hd, q.device)
@@ -307,3 +362,65 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     return ops.decode_attention(q, k_cache, v_cache, lengths,
                                 sliding_window=sliding_window,
                                 rolling=rolling)
+
+
+def decode_attention_lsharded(q, k_cache, v_cache, lengths, *, mesh,
+                              batch_axes=("data",), model_axis="model"):
+    """Distributed flash-decode: KV cache sharded along the LENGTH axis.
+
+    Each model shard attends q (replicated, tiny) against its local KV
+    slice at its offset ``rank * L / M``, and the partial (m, l, acc)
+    statistics are merged with an online-softmax combine: a max
+    all-reduce of m, then sum all-reduces of the rescaled l and of the
+    (B, Hq, hd) accumulator over the ``model_axis`` sub-mesh, instead of
+    regathering the cache.  q: (B, Hq, hd); k_cache/v_cache: (B, L, Hkv,
+    hd), L divisible by the model axis; lengths: (B,).  DTensors are
+    redistributed to that layout (batch over ``batch_axes``); a plain
+    tensor counts as the same on every rank.  Returns (B, Hq, hd),
+    replicated over the model axis."""
+    from torch.distributed import _functional_collectives as funcol
+
+    from ..kernels.sharded import as_dtensor, on_shards
+    from ..launch.mesh import NamedSharding, mesh_shape
+
+    b_spec = tuple(batch_axes) if batch_axes else None
+    L = k_cache.shape[1]
+    msize = mesh_shape(mesh)[model_axis]
+    assert L % msize == 0, (L, msize)
+    l_loc = L // msize
+    group = mesh.get_group(model_axis)
+
+    def local_fn(q, k, v, lengths):
+        # q: (B, Hq, hd) replicated over model; k/v: (B, L_loc, Hkv, hd)
+        b, hq, hd = q.shape
+        hkv = k.shape[2]
+        g = hq // hkv
+        offset = mesh.get_local_rank(model_axis) * l_loc
+        qf = (q.reshape(b, hkv, g, hd).float()
+              * _scale(hd, q.device)).to(k.dtype)
+        s = torch.einsum("bhgd,blhd->bhgl", qf.float(), k.float())
+        pos = offset + torch.arange(l_loc, device=q.device)[None, :]
+        mask = pos < lengths.long()[:, None]
+        s = torch.where(mask[:, None, None, :], s, torch.full_like(s, _NEG))
+        m = s.amax(dim=-1)                                 # (B,Hkv,G)
+        p = torch.exp(s - m[..., None])
+        l_sum = p.sum(dim=-1)
+        acc = torch.einsum("bhgl,blhd->bhgd", p.to(v.dtype).float(),
+                           v.float())
+        # online-softmax merge across shards (tiny collectives)
+        m_all = funcol.all_reduce(m, "max", group)
+        alpha = torch.exp((m - m_all).clamp(-60.0, 0.0))
+        l_tot = funcol.all_reduce(l_sum * alpha, "sum", group)
+        acc_tot = funcol.all_reduce(acc * alpha[..., None], "sum", group)
+        out = acc_tot / l_tot.clamp_min(1e-30)[..., None]
+        return out.reshape(b, hq, hd).to(q.dtype)
+
+    def pl(*spec):
+        return NamedSharding(mesh, spec).placements
+
+    qp = pl(b_spec, None, None)
+    kvp = pl(b_spec, model_axis, None, None)
+    q, k_cache, v_cache, lengths = (as_dtensor(t, mesh) for t in
+                                    (q, k_cache, v_cache, lengths))
+    return on_shards(local_fn, (q, k_cache, v_cache, lengths),
+                     (qp, kvp, kvp, pl(b_spec)), qp, mesh)

@@ -201,8 +201,41 @@ def linear(x, w, b=None):
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
+    if w.dim() > 2 and sharded_dims(w, range(1, w.dim())):
+        return _linear_sharded(x, w, b)
     out = x @ w.reshape(w.shape[0], -1)
     out = out.reshape(x.shape[:-1] + w.shape[1:])
+    if b is not None:
+        out = out + b
+    return out
+
+
+def sharded_dims(t, dims) -> list:
+    """The dims among ``dims`` that a DTensor ``t`` shards (none for a
+    plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return []
+    cut = {p.dim % t.dim() for p in t.placements if isinstance(p, Shard)}
+    return [d for d in dims if d in cut]
+
+
+def _linear_sharded(x, w, b=None):
+    """:func:`linear` for a DTensor weight whose trailing dims are sharded:
+    the sharded ones go first before the flatten, and back after, so the
+    flattened weight keeps a plain shard (DTensor cannot multiply a
+    strided one)."""
+    trail = list(range(1, w.dim()))
+    cut = sharded_dims(w, trail)
+    perm = [0] + cut + [d for d in trail if d not in cut]
+    wp = w.permute(perm)
+    out = x @ wp.reshape(w.shape[0], -1)
+    out = out.reshape(x.shape[:-1] + wp.shape[1:])
+    lead = x.dim() - 1
+    inv = [0] * len(trail)
+    for i, d in enumerate(perm[1:]):
+        inv[d - 1] = i
+    out = out.permute(list(range(lead)) + [lead + i for i in inv])
     if b is not None:
         out = out + b
     return out

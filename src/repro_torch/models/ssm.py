@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.sharded import is_dtensor, on_batch_shards
 
 __all__ = [
     "chunked_linear_attention",
@@ -86,7 +87,12 @@ def linear_attention_step(q, k, v, log_decay, gate_in, state, *,
     """Single decode step of the same recurrence.
 
     q, k: (B, H, dk); v: (B, H, dv); log_decay, gate_in: (B, H);
-    state: (B, H, dk, dv(+1)).  Returns (y (B, H, dv), new_state)."""
+    state: (B, H, dk, dv(+1)).  Returns (y (B, H, dv), new_state).  On
+    DTensors it runs on each rank's batch rows."""
+    if is_dtensor(v) or is_dtensor(state):
+        return on_batch_shards(linear_attention_step,
+                               (q, k, v, log_decay, gate_in, state),
+                               n_out=2, normalize=normalize)
     qf, kf, vf = q.float(), k.float(), v.float()
     if normalize:
         vf = torch.cat([vf, vf.new_ones(vf.shape[:-1] + (1,))], dim=-1)
@@ -159,7 +165,17 @@ def _slstm_cell(h, c, n, m, x_gates, r_weights):
 def slstm_scan(x_gates, r_weights, *, initial=None, valid=None):
     """Sequential sLSTM over time.  x_gates: (B, S, H, 4, hd).
     ``valid``: optional (B, S) bool — padding steps leave the state frozen.
-    Returns (h_seq (B, S, H, hd), final (h, c, n, m))."""
+    Returns (h_seq (B, S, H, hd), final (h, c, n, m)).  On DTensors the
+    loop runs on each rank's batch rows."""
+    if is_dtensor(x_gates):
+        ni = 0 if initial is None else 4
+
+        def local(xg, *a):
+            return slstm_scan(xg, a[-1], initial=tuple(a[:ni]) or None,
+                              valid=a[ni] if valid is not None else None)
+        rows = (x_gates,) + tuple(initial or ()) \
+            + ((valid,) if valid is not None else ())
+        return on_batch_shards(local, rows, (r_weights,), n_out=5)
     B, S, H, _, hd = x_gates.shape
     if initial is None:
         z = torch.zeros((B, H, hd), dtype=torch.float32,
@@ -183,7 +199,12 @@ def slstm_scan(x_gates, r_weights, *, initial=None, valid=None):
 
 
 def slstm_step(x_gates, r_weights, state):
-    """Single decode step.  x_gates: (B, H, 4, hd)."""
+    """Single decode step.  x_gates: (B, H, 4, hd).  On DTensors it runs
+    on each rank's batch rows."""
+    if is_dtensor(x_gates):
+        return on_batch_shards(lambda xg, *a: slstm_step(xg, a[-1], a[:4]),
+                               (x_gates,) + tuple(state), (r_weights,),
+                               n_out=5)
     h, c, n, m = state
     h, c, n, m = _slstm_cell(h, c, n, m, x_gates, r_weights)
     return h.to(x_gates.dtype), (h, c, n, m)

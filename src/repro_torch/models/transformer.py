@@ -46,6 +46,7 @@ chunks.  On a CUDA tensor the norms take K2 with its backward kernel
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -66,11 +67,12 @@ from .layers import (
     make_rope,
     norm_init,
     rms_norm,
+    sharded_dims,
     swiglu,
 )
 from .moe import moe_ffn
 
-__all__ = ["init_params", "init_cache", "layer_pattern",
+__all__ = ["init_params", "param_axes", "init_cache", "layer_pattern",
            "supports_paged_stack", "loss_fn", "prefill_fn", "decode_fn",
            "chunk_prefill_fn", "paged_decode_fn", "paged_chunk_prefill_fn",
            "resolve_device", "torch_dtype"]
@@ -249,7 +251,10 @@ def _slstm_block_init(cfg: ModelConfig, n: int, kw) -> dict:
     return {"norm1": _ones(n, d, dev), "ssm": {
         "w_x": _stacked(n, (d, H, 4, hd), **kw),
         "b_x": torch.zeros((n, H, 4, hd), device=dev),
-        "r_h": _normal(n, (H, 4, hd, hd), 0.5 / np.sqrt(hd), **kw),
+        # the reference scales the draw rounded to the model dtype by a
+        # numpy float64, which makes the leaf float32 in a bf16 model
+        "r_h": _normal(n, (H, 4, hd, hd), 1.0, **kw).float()
+        * (0.5 / np.sqrt(hd)),
         "w_ffn_in": _stacked(n, (d, 2 * d), **kw),
         "w_ffn_out": _stacked(n, (2 * d, d), **kw),
     }, "norm2": _ones(n, d, dev)}
@@ -267,11 +272,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     :func:`layer_pattern`, ``shared_attn`` unstacked; audio's encoder
     (``enc_blocks``, ``enc_pos`` (encoder_seq, d) at scale 0.01,
     ``enc_norm``) and ``cross_blocks`` ({norm, attn} per decoder layer,
-    stacked); vlm's unstacked ``projector`` MLP."""
+    stacked); vlm's unstacked ``projector`` MLP.  ``device="meta"`` gives
+    the shapes and dtypes alone."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = None                    # the meta device draws nothing
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
     kw = dict(gen=gen, device=dev, dtype=dtype)
     params: dict = {}
     for gname, kind, n in layer_pattern(cfg):
@@ -298,6 +306,89 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     if cfg.family == "vlm":
         params["projector"] = _slice(_mlp_init(cfg, 1, kw), 0)
     return params
+
+
+def _attn_axes(cfg: ModelConfig) -> dict:
+    ax = {"wq": ("embed", "heads", "hd"), "wk": ("embed", "kv_heads", "hd"),
+          "wv": ("embed", "kv_heads", "hd"), "wo": ("heads", "hd", "embed")}
+    if cfg.qkv_bias:
+        ax.update(bq=("heads", "hd"), bk=("kv_heads", "hd"),
+                  bv=("kv_heads", "hd"))
+    return ax
+
+
+def _mlp_axes(cfg: ModelConfig) -> dict:
+    ax = {"w_in": ("embed", "mlp"), "w_out": ("mlp", "embed")}
+    if cfg.mlp_variant == "swiglu":
+        ax["w_gate"] = ("embed", "mlp")
+    return ax
+
+
+def _block_axes(cfg: ModelConfig, kind: str) -> dict:
+    """One unstacked block's logical axes, as the reference's ``Param``s
+    carry them."""
+    norm = ("embed",)
+    if kind == "attn":
+        ffn = {"router": ("embed", "experts"),
+               "w1": ("experts", "embed", "expert_mlp"),
+               "w3": ("experts", "embed", "expert_mlp"),
+               "w2": ("experts", "expert_mlp", "embed")} if cfg.is_moe \
+            else _mlp_axes(cfg)
+        return {"norm1": norm, "attn": _attn_axes(cfg), "norm2": norm,
+                "ffn": ffn}
+    conv = ("conv_k", "ssm_inner")
+    if kind == "mamba":
+        h = ("ssm_heads",)
+        return {"norm1": norm, "ssm": {
+            "w_in": ("embed", "ssm_in"), "conv_w": conv, "a_log": h,
+            "dt_bias": h, "d_skip": h, "norm": ("ssm_inner",),
+            "w_out": ("ssm_inner", "embed")}}
+    if kind == "mlstm":
+        sq = ("ssm_inner", "ssm_inner2")
+        return {"norm1": norm, "ssm": {
+            "w_up": ("embed", "ssm_in"), "conv_w": conv, "wq": sq,
+            "wk": sq, "wv": sq, "w_gates": ("ssm_inner", "ssm_heads2"),
+            "norm": ("ssm_inner",), "w_out": ("ssm_inner", "embed")}}
+    if kind == "slstm":
+        return {"norm1": norm, "ssm": {
+            "w_x": ("embed", "ssm_heads", "gates", "hd"),
+            "b_x": ("ssm_heads", "gates", "hd"),
+            "r_h": ("ssm_heads", "gates", "hd", "hd2"),
+            "w_ffn_in": ("embed", "mlp"), "w_ffn_out": ("mlp", "embed")},
+            "norm2": norm}
+    raise ValueError(kind)
+
+
+def _stacked_axes(tree):
+    if isinstance(tree, dict):
+        return {k: _stacked_axes(v) for k, v in tree.items()}
+    return ("layers",) + tree
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical sharding axes of every leaf of :func:`init_params`'s
+    tree, a tuple of names per leaf: the axes the reference's ``Param``s
+    carry (``split_params``), which :mod:`repro_torch.launch.mesh` maps to
+    mesh axes."""
+    axes: dict = {}
+    for gname, kind, _ in layer_pattern(cfg):
+        if kind == "shared_attn":
+            axes.setdefault("shared_attn", _block_axes(cfg, "attn"))
+            continue
+        axes[gname] = _stacked_axes(_block_axes(cfg, kind))
+    axes["embed"] = ("vocab", "embed")
+    axes["final_norm"] = ("embed",)
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if cfg.family == "audio":
+        axes["enc_blocks"] = _stacked_axes(_block_axes(cfg, "attn"))
+        axes["enc_pos"] = ("enc_seq", "embed")
+        axes["enc_norm"] = ("embed",)
+        axes["cross_blocks"] = _stacked_axes({"norm": ("embed",),
+                                              "attn": _attn_axes(cfg)})
+    if cfg.family == "vlm":
+        axes["projector"] = _mlp_axes(cfg)
+    return axes
 
 
 def _empty_cache_block(cfg: ModelConfig, kind: str, n: int, batch: int,
@@ -372,13 +463,16 @@ def _slice(tree, i: int):
     return tree[i]
 
 
-def _mlp_forward(cfg: ModelConfig, p, x, aux=None):
-    """The block's FFN: the routed experts for an MoE model, else the dense
-    MLP.  ``aux`` (a list, in training) collects the MoE load-balance
-    loss; without it the loss is not computed."""
+def _mlp_forward(cfg: ModelConfig, p, x, aux=None, mesh=None,
+                 batch_axes=("data",)):
+    """The block's FFN: the routed experts for an MoE model (expert- or
+    tensor-parallel under ``mesh``), else the dense MLP.  ``aux`` (a list,
+    in training) collects the MoE load-balance loss; without it the loss
+    is not computed."""
     if cfg.is_moe:
         y, a = moe_ffn(x, p, n_experts=cfg.n_experts,
-                       k=cfg.experts_per_token,
+                       k=cfg.experts_per_token, mesh=mesh,
+                       batch_axes=batch_axes,
                        capacity_factor=cfg.capacity_factor,
                        aux_loss=aux is not None)
         if aux is not None:
@@ -403,18 +497,26 @@ def _chunk_qkv(cfg: ModelConfig, p, xx, r, sin, cos):
 
 
 def _out_proj(cfg: ModelConfig, ap, o):
-    """Attention output (..., Hq, hd) through ``wo`` to (..., d)."""
+    """Attention output (..., Hq, hd) through ``wo`` to (..., d).  A
+    DTensor ``wo`` sharded on hd contracts (hd, Hq) in that order, so both
+    flattens keep a plain shard."""
+    wo = ap["wo"]
+    if sharded_dims(wo, [1]) and not sharded_dims(wo, [0]):
+        n = o.dim()
+        o = o.transpose(n - 2, n - 1)
+        wo = wo.transpose(0, 1)
     return linear(o.reshape(o.shape[:-2] + (-1,)),
-                  ap["wo"].reshape(-1, cfg.d_model))
+                  wo.reshape(-1, cfg.d_model))
 
 
-def _chunk_finish(cfg: ModelConfig, p, xx, o, aux=None):
+def _chunk_finish(cfg: ModelConfig, p, xx, o, aux=None, mesh=None,
+                  batch_axes=("data",)):
     """Post-attention half: output projection, its residual added in norm2,
     FFN.  Returns (residual stream, FFN output): the next norm adds the
     second."""
     xx, h2 = add_rms_norm(xx, _out_proj(cfg, p["attn"], o), p["norm2"],
                           cfg.norm_eps)
-    return xx, _mlp_forward(cfg, p["ffn"], h2, aux)
+    return xx, _mlp_forward(cfg, p["ffn"], h2, aux, mesh, batch_axes)
 
 
 def _write_rows(buf, pos, new):
@@ -429,15 +531,56 @@ def _write_rows(buf, pos, new):
     buf[bidx, pc] = torch.where(keep, new.to(buf.dtype), buf[bidx, pc])
 
 
+def _write_rows_sharded(buf, pos, new):
+    """:func:`_write_rows` on a DTensor cache: the new rows and positions
+    are redistributed to the cache's batch and head shards, and each rank
+    writes its rows into its local shard, its positions taken from its
+    shard's offset along the length (the rows of another length shard
+    fall outside ``[0, L_loc)`` and are dropped)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from ..kernels.sharded import as_dtensor
+    mesh = buf.device_mesh
+    # the rows without the length dim: batch kept, later dims shifted down
+    rows = tuple(Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard)
+                 and p.dim != 1 else Replicate() for p in buf.placements)
+    new = as_dtensor(new, mesh).redistribute(mesh, rows)
+    pos = as_dtensor(pos, mesh).redistribute(
+        mesh, tuple(p if p == Shard(0) else Replicate() for p in rows))
+    # this shard's first position: the mesh dims that cut the length, the
+    # outermost first
+    size, off = buf.shape[1], 0
+    for i, p in enumerate(buf.placements):
+        if p == Shard(1):
+            size //= mesh.size(i)
+            off += mesh.get_local_rank(i) * size
+    _write_rows(buf.to_local(), pos.to_local() - off, new.to_local())
+
+
+def _copy_into(dst, src):
+    """``dst.copy_(src)``; on a DTensor ``dst`` each rank copies into its
+    own shard from ``src`` redistributed to ``dst``'s placements."""
+    from ..kernels.sharded import as_dtensor, is_dtensor
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    src = as_dtensor(src, dst.device_mesh).redistribute(dst.device_mesh,
+                                                        dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
 def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
-                  lengths, rolling: bool = False, cross=None, aux=None):
+                  lengths, rolling: bool = False, cross=None, aux=None,
+                  mesh=None, batch_axes=("data",), kv_shard: str = "none"):
     """Self-attention block (+ FFN).  ``decode`` writes the new token's KV
     at ``lengths - 1`` (taken ``% L`` on a rolling cache) into ``cache`` in
     place and attends through :func:`attention.decode_attention` (kernel
-    K3 on a CUDA tensor); ``prefill`` attends causally and fills the cache
-    rows' first S positions; ``train`` attends through
+    K3 on a CUDA tensor), or with ``kv_shard="length"`` on a cache that
+    is not rolling through :func:`attention.decode_attention_lsharded`;
+    ``prefill`` attends causally and fills the cache rows' first S
+    positions; ``train`` attends through
     :func:`attention.blocked_causal_attention` and writes no cache.
-    ``aux``: see :func:`_mlp_forward`.
+    ``aux``: see :func:`_mlp_forward`.  Under ``mesh`` the cache is a
+    DTensor tree and each rank writes its own shard.
 
     ``cross`` (audio): (this layer's ``cross_blocks`` entry, its cross KV
     {k, v} (B, S_enc, Hkv, hd), ``enc_lengths``).  Between the
@@ -450,11 +593,17 @@ def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
         pos = lengths.long() - 1
         if rolling:
             pos = pos % kc.shape[1]
-        _write_rows(kc, pos, k[:, 0])
-        _write_rows(vc, pos, v[:, 0])
-        o = attn_lib.decode_attention(
-            q[:, 0].contiguous(), kc, vc, lengths,
-            sliding_window=cfg.sliding_window, rolling=rolling)[:, None]
+        write = _write_rows if mesh is None else _write_rows_sharded
+        write(kc, pos, k[:, 0])
+        write(vc, pos, v[:, 0])
+        if kv_shard == "length" and not rolling:
+            o = attn_lib.decode_attention_lsharded(
+                q[:, 0], kc, vc, lengths, mesh=mesh,
+                batch_axes=batch_axes)[:, None]
+        else:
+            o = attn_lib.decode_attention(
+                q[:, 0].contiguous(), kc, vc, lengths,
+                sliding_window=cfg.sliding_window, rolling=rolling)[:, None]
     else:
         attend = attn_lib.blocked_causal_attention if mode == "train" \
             else attn_lib.causal_attention
@@ -465,8 +614,12 @@ def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
             if S > L:
                 raise ValueError(f"prefill of {S} positions does not fit a "
                                  f"KV cache of length {L}")
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
+            if mesh is None:
+                cache["k"][:, :S] = k.to(cache["k"].dtype)
+                cache["v"][:, :S] = v.to(cache["v"].dtype)
+            else:
+                _copy_into(cache["k"][:, :S], k.to(cache["k"].dtype))
+                _copy_into(cache["v"][:, :S], v.to(cache["v"].dtype))
     if cross is not None:
         cp, ckv, enc_lengths = cross
         x, hc = add_rms_norm(x, _out_proj(cfg, p["attn"], o), cp["norm"],
@@ -475,13 +628,22 @@ def _attn_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache, sin, cos,
         o = attn_lib.cross_attention(qc, ckv["k"], ckv["v"],
                                      lengths=enc_lengths)
         p = dict(p, attn=cp["attn"])      # the cross wo projects o below
-    return _chunk_finish(cfg, p, x, o, aux)
+    return _chunk_finish(cfg, p, x, o, aux, mesh, batch_axes)
 
 
 def _valid(lengths, S: int):
     """(B, S) float mask of the positions below each row's length."""
     return (torch.arange(S, device=lengths.device)[None, :]
             < lengths.long()[:, None]).float()
+
+
+def _logsigmoid(x):
+    """``F.logsigmoid``; on a DTensor (no sharding rule) on each rank's
+    batch rows."""
+    from ..kernels.sharded import is_dtensor, on_batch_shards
+    if is_dtensor(x):
+        return on_batch_shards(F.logsigmoid, (x,))
+    return F.logsigmoid(x)
 
 
 def _softplus(x):
@@ -526,8 +688,8 @@ def _mamba_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
         y = y + sp["d_skip"].to(y.dtype)[None, None, :, None] * xh
         y = y.reshape(Bt, S, di)
     if cache is not None:
-        cache["conv"].copy_(conv_state)
-        cache["state"].copy_(state)
+        _copy_into(cache["conv"], conv_state)
+        _copy_into(cache["state"], state)
     y = rms_norm(y * F.silu(z), sp["norm"], cfg.norm_eps)
     return x, linear(y, sp["w_out"])
 
@@ -552,7 +714,7 @@ def _mlstm_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
         i_pre, f_pre = torch.chunk(linear(xc, sp["w_gates"]).float(), 2,
                                    dim=-1)                     # (B, H)
         y, state = ssm_lib.linear_attention_step(
-            q, k, v, F.logsigmoid(f_pre), torch.sigmoid(i_pre),
+            q, k, v, _logsigmoid(f_pre), torch.sigmoid(i_pre),
             cache["state"], normalize=True)
         y = y.reshape(-1, 1, di)
     else:
@@ -566,7 +728,7 @@ def _mlstm_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
         v = linear(xc, sp["wv"]).reshape(Bt, S, H, hd)
         i_pre, f_pre = torch.chunk(linear(xc, sp["w_gates"]).float(), 2,
                                    dim=-1)                     # (B, S, H)
-        log_f = F.logsigmoid(f_pre)
+        log_f = _logsigmoid(f_pre)
         i_g = torch.sigmoid(i_pre)
         if lengths is not None:
             valid = _valid(lengths, S)[..., None]
@@ -576,8 +738,8 @@ def _mlstm_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
             q, k, v, log_f, i_g, chunk=128, normalize=True)
         y = y.reshape(Bt, S, di)
     if cache is not None:
-        cache["conv"].copy_(conv_state)
-        cache["state"].copy_(state)
+        _copy_into(cache["conv"], conv_state)
+        _copy_into(cache["state"], state)
     y = rms_norm(y * F.silu(z), sp["norm"], cfg.norm_eps)
     return x, linear(y, sp["w_out"])
 
@@ -590,8 +752,7 @@ def _slstm_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
     hd = d // H
     sp = p["ssm"]
     x, h = add_rms_norm(x, r, p["norm1"], cfg.norm_eps)
-    xg = linear(h, sp["w_x"].reshape(d, -1)).reshape(
-        h.shape[:-1] + (H, 4, hd)) + sp["b_x"].to(h.dtype)
+    xg = linear(h, sp["w_x"]) + sp["b_x"].to(h.dtype)   # (..., H, 4, hd)
     if mode == "decode":
         y, state = ssm_lib.slstm_step(xg[:, 0], sp["r_h"], cache["hcnm"])
         y = y[:, None]
@@ -602,7 +763,7 @@ def _slstm_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
         y, state = ssm_lib.slstm_scan(xg, sp["r_h"], valid=valid)
     if cache is not None:
         for dst, src in zip(cache["hcnm"], state):
-            dst.copy_(src)
+            _copy_into(dst, src)
     x, h2 = add_rms_norm(x, y.reshape(y.shape[:2] + (d,)), p["norm2"],
                          cfg.norm_eps)
     ff = linear(F.gelu(linear(h2, sp["w_ffn_in"]), approximate="tanh"),
@@ -622,9 +783,17 @@ def _block_forward(cfg: ModelConfig, kind: str, p, x, r, *, mode: str,
                           lengths=common["lengths"])
 
 
+def _constrain(t, act_spec):
+    """The reference's ``with_sharding_constraint`` on the residual stream:
+    ``t`` redistributed to ``act_spec``'s placements (None: unchanged)."""
+    if act_spec is None or t is None:
+        return t
+    return t.redistribute(act_spec.mesh, act_spec.placements)
+
+
 def _run_stack(cfg: ModelConfig, params, x, *, mode: str, cache,
                common: dict, remat: bool = False, cross_kv=None,
-               enc_lengths=None):
+               enc_lengths=None, act_spec=None):
     """Every block of every group in order; each block reads and writes
     its own slice of ``cache`` (the shared attention block: one cache per
     application; audio's decoder layer i also reads ``cross_blocks[i]``
@@ -634,8 +803,11 @@ def _run_stack(cfg: ModelConfig, params, x, *, mode: str, cache,
     branch output), which :func:`_lm_logits` adds; ``mode="train"``
     (no cache) adds a third value, the MoE load-balance loss summed over
     the layers in order (float32 zero for the other families), and with
-    ``remat`` runs each block under ``torch.utils.checkpoint``."""
+    ``remat`` runs each block under ``torch.utils.checkpoint``.
+    ``act_spec``: the residual stream's sharding, after the embedding and
+    after every block (see :func:`_constrain`)."""
     r = None
+    x = _constrain(x, act_spec)
     train = mode == "train"
     aux_total = x.new_zeros((), dtype=torch.float32) if train else None
     if cfg.family == "audio" and cross_kv is None:
@@ -668,6 +840,7 @@ def _run_stack(cfg: ModelConfig, params, x, *, mode: str, cache,
                                          _slice(cross_kv, i), enc_lengths))
             p = gp if kind == "shared_attn" else _slice(gp, i)
             x, r, aux = block(kind, p, x, r, c, kw)
+            x = _constrain(x, act_spec)
             if aux is not None:
                 aux_total = aux_total + aux
     if train:
@@ -737,7 +910,7 @@ def _cross_kv_from_encoder(cfg: ModelConfig, params, enc_out, cross_kv=None):
 def _prepare_inputs(cfg: ModelConfig, params, batch):
     """Embed the tokens; for vlm with ``patches`` (B, npt, d), put the
     projector MLP's output in place of the first npt positions."""
-    x = params["embed"][batch["tokens"].long()]
+    x = _embed(params, batch["tokens"])
     if cfg.family == "vlm" and "patches" in batch:
         proj = _mlp_forward(cfg, params["projector"], batch["patches"])
         npt, S = proj.shape[1], x.shape[1]
@@ -793,13 +966,15 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None,
     load-balance loss.  batch: tokens (B, S), targets (B, S), mask (B, S)
     (optional), plus ``patches`` (vlm) or ``frames`` (audio; and
     ``enc_lengths``, optional).  ``remat``: each block (and each audio
-    encoder layer) under ``torch.utils.checkpoint``.  The port runs on one
-    card: ``mesh`` and ``act_spec`` must be None (a mesh is ROADMAP Queue
-    A item 12b), and ``batch_axes`` only names a mesh's axes."""
+    encoder layer) under ``torch.utils.checkpoint``.  Training runs on one
+    card: ``mesh`` and ``act_spec`` must be None (training under a mesh is
+    ROADMAP Queue A item 12c), and ``batch_axes`` only names a mesh's
+    axes."""
     if mesh is not None or act_spec is not None:
         raise NotImplementedError(
-            "loss_fn: meshes and activation sharding are not ported yet "
-            "(ROADMAP Queue A item 12b); pass mesh=None, act_spec=None")
+            "loss_fn: training under a mesh is not ported yet (ROADMAP "
+            "Queue A item 12c; item 12b ported the mesh for serving); pass "
+            "mesh=None, act_spec=None")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _prepare_inputs(cfg, params, batch)
@@ -820,14 +995,62 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None,
     return loss + cfg.router_aux_weight * aux
 
 
-def prefill_fn(cfg: ModelConfig, params, batch, *, max_len: int):
+def _mesh_scope(mesh):
+    """Under a mesh, plain tensors made inside the model (rope tables,
+    masks, positions) join DTensor ops as replicated."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _embed(params, tokens):
+    """The token embedding: ``embed[tokens]``; on a DTensor table (its
+    vocab maybe sharded) the embedding op, which DTensor shards, its
+    pending sum over the vocab shards reduced at once (a vocab shard's
+    pending sum holds a mask that serves one reduction only)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from ..kernels.sharded import is_dtensor
+    if is_dtensor(params["embed"]):
+        x = F.embedding(tokens.long(), params["embed"])
+        return x.redistribute(x.device_mesh, tuple(
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements))
+    return params["embed"][tokens.long()]
+
+
+def _placed_cache(cfg, cache, mesh, kv_shard: str):
+    """``cache`` (plain tensors the same on every rank, or DTensors) under
+    :func:`repro_torch.launch.mesh.cache_shardings`; the global batch is
+    ``lengths``'s."""
+    from ..launch.mesh import cache_shardings, distribute_tree
+    sh = cache_shardings(cache, cfg, mesh, cache["lengths"].shape[0],
+                         kv_shard=kv_shard)
+    return distribute_tree(cache, sh)
+
+
+def prefill_fn(cfg: ModelConfig, params, batch, *, max_len: int, mesh=None,
+               batch_axes=("data",), act_spec=None):
     """Prefill: run the prompt, build the decode cache.
 
     batch: tokens (B, S), lengths (B,) true prompt lengths, plus
     ``patches`` (B, patch_tokens, d) for vlm (optional, as in the
     reference) or ``frames`` (B, encoder_seq, d) for audio, whose encoder
     runs here and fills the cache's ``cross_kv``; returns (last_logits
-    (B, V), cache) with the :func:`init_cache` layout."""
+    (B, V), cache) with the :func:`init_cache` layout.
+
+    ``mesh``: params and batch are DTensors (placed by
+    :mod:`repro_torch.launch.mesh`; a plain tensor counts as replicated),
+    the cache is made under ``cache_shardings`` (KV heads per the rules),
+    the MoE FFN runs over ``batch_axes`` and the model axis, and
+    ``act_spec`` (a ``NamedSharding``) constrains the residual stream."""
+    with _mesh_scope(mesh):
+        return _prefill(cfg, params, batch, max_len=max_len, mesh=mesh,
+                        batch_axes=batch_axes, act_spec=act_spec)
+
+
+def _prefill(cfg: ModelConfig, params, batch, *, max_len: int, mesh,
+             batch_axes, act_spec):
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
@@ -839,35 +1062,73 @@ def prefill_fn(cfg: ModelConfig, params, batch, *, max_len: int):
     sin, cos = make_rope(torch.arange(S, device=dev), cfg.hd,
                          cfg.rope_theta)
     cache = init_cache(cfg, B, max_len, device=dev)
+    common = dict(sin=sin[None], cos=cos[None], lengths=lengths)
+    if mesh is not None:
+        cache = _placed_cache(cfg, cache, mesh, "heads")
+        common.update(mesh=mesh, batch_axes=batch_axes)
     if cfg.family == "audio":
         _cross_kv_from_encoder(cfg, params,
                                _encode_audio(cfg, params, batch["frames"]),
                                cache["cross_kv"])
     x, r = _run_stack(cfg, params, x, mode="prefill", cache=cache,
-                      common=dict(sin=sin[None], cos=cos[None],
-                                  lengths=lengths))
+                      common=common, act_spec=act_spec)
+    if mesh is not None:
+        from ..kernels.sharded import as_dtensor
+        lengths = as_dtensor(lengths, mesh).redistribute(
+            mesh, cache["lengths"].placements)
     cache["lengths"] = lengths
     return (_lm_logits(cfg, params, _last(x, lengths, S),
                        _last(r, lengths, S)), cache)
 
 
-def decode_fn(cfg: ModelConfig, params, cache, tokens):
+def decode_fn(cfg: ModelConfig, params, cache, tokens, *, mesh=None,
+              batch_axes=("data",), kv_shard: str = "none"):
     """One decode step.  tokens: (B,) int32 — the tokens sampled last step.
 
     ``cache`` (the :func:`init_cache` layout, ``lengths`` counting the
     tokens so far) is updated IN PLACE: the new KV at ``lengths`` (rolling
     ``% L`` with a sliding window), every recurrent state, and ``lengths``
     + 1; audio reads its ``cross_kv`` and ``enc_lengths``.  Returns
-    (logits (B, V), cache)."""
-    lengths = cache["lengths"] + 1
-    x = params["embed"][tokens.long()[:, None]]
-    pos = lengths.long() - 1
-    sin, cos = make_rope(pos[:, None], cfg.hd, cfg.rope_theta)
-    x, r = _run_stack(cfg, params, x, mode="decode", cache=cache,
-                      common=dict(sin=sin, cos=cos, lengths=lengths,
-                                  rolling=bool(cfg.sliding_window)))
-    cache["lengths"] = lengths
-    return _lm_logits(cfg, params, x[:, 0], r[:, 0]), cache
+    (logits (B, V), cache).
+
+    ``mesh``: params and cache are DTensors (see :func:`prefill_fn`), each
+    rank writing its own cache shard.  ``kv_shard="length"`` first moves
+    the self-attention KV to the length-sharded layout of
+    ``cache_shardings(..., kv_shard="length")`` (in the cache dict, once:
+    a cache already so placed stays as it is) and attends through
+    :func:`attention.decode_attention_lsharded`; any other value keeps the
+    cache's layout and attends through K3 on each shard."""
+    with _mesh_scope(mesh):
+        if mesh is not None and kv_shard == "length":
+            _length_shard_kv(cfg, cache, mesh)
+        lengths = cache["lengths"] + 1
+        x = _embed(params, tokens[:, None])
+        pos = lengths.long() - 1
+        sin, cos = make_rope(pos[:, None], cfg.hd, cfg.rope_theta)
+        common = dict(sin=sin, cos=cos, lengths=lengths,
+                      rolling=bool(cfg.sliding_window))
+        if mesh is not None:
+            common.update(mesh=mesh, batch_axes=batch_axes,
+                          kv_shard=kv_shard)
+        x, r = _run_stack(cfg, params, x, mode="decode", cache=cache,
+                          common=common)
+        cache["lengths"] = lengths
+        return _lm_logits(cfg, params, x[:, 0], r[:, 0]), cache
+
+
+def _length_shard_kv(cfg: ModelConfig, cache, mesh) -> None:
+    """The self-attention K/V leaves of ``cache`` (not audio's
+    ``cross_kv``) redistributed in the dict to the length-sharded
+    layout."""
+    from ..launch.mesh import cache_shardings
+    sh = cache_shardings(cache, cfg, mesh, cache["lengths"].shape[0],
+                         kv_shard="length")
+    for gname, kind, _ in layer_pattern(cfg):
+        if kind in ("attn", "shared_attn"):
+            for n in ("k", "v"):
+                t, s = cache[gname][n], sh[gname][n]
+                if tuple(t.placements) != s.placements:
+                    cache[gname][n] = t.redistribute(mesh, s.placements)
 
 
 def supports_paged_stack(cfg: ModelConfig) -> bool:
@@ -889,7 +1150,7 @@ def _require_paged_stack(cfg: ModelConfig, what: str) -> None:
 
 
 def chunk_prefill_fn(cfg: ModelConfig, params, cache, tokens, offsets,
-                     chunk_lens):
+                     chunk_lens, *, mesh=None, batch_axes=("data",)):
     """Incremental prefill: run ONE chunk of each row's prompt against its
     (already partially filled) contiguous cache row.
 
@@ -897,7 +1158,9 @@ def chunk_prefill_fn(cfg: ModelConfig, params, cache, tokens, offsets,
     hd), updated in place; tokens: (n, C) right-padded; offsets: (n,)
     chunk start positions; chunk_lens: (n,) valid tokens (0 marks a
     padding row — its writes are dropped).  Returns (last_logits (n, V),
-    cache) with ``lengths = offsets + chunk_lens``."""
+    cache) with ``lengths = offsets + chunk_lens``.  ``mesh``: the MoE FFN
+    runs over it (see :func:`repro_torch.models.moe.moe_ffn`); the other
+    tensors are plain, the same on every rank."""
     _require_paged_stack(cfg, "chunk_prefill_fn")
     n, C = tokens.shape
     dev = tokens.device
@@ -920,7 +1183,7 @@ def chunk_prefill_fn(cfg: ModelConfig, params, cache, tokens, offsets,
         vc[i, rows, wpos] = v[rows, cols].to(vc.dtype)
         o = attn_lib.chunk_attention(q, kc[i], vc[i], q_pos=posmat,
                                      kv_len=kv_len)
-        x, r = _chunk_finish(cfg, p, x, o)
+        x, r = _chunk_finish(cfg, p, x, o, mesh=mesh, batch_axes=batch_axes)
     cache["lengths"] = kv_len.to(torch.int32)
     return (_lm_logits(cfg, params, _last(x, chunk_lens, C),
                        _last(r, chunk_lens, C)), cache)
@@ -928,7 +1191,8 @@ def chunk_prefill_fn(cfg: ModelConfig, params, cache, tokens, offsets,
 
 def paged_decode_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
                     lengths, blk, off, tokens, *, block_size: int,
-                    attn_impl: str = "kernel"):
+                    attn_impl: str = "kernel", mesh=None,
+                    batch_axes=("data",)):
     """One decode step over a paged KV cache (vLLM block tables).
 
     k_pool/v_pool: (layers, n_blocks, block, Hkv, hd), updated in place;
@@ -946,7 +1210,8 @@ def paged_decode_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
         bit-parity oracle);
       * ``"ref"`` — the standalone gather-softmax oracle.
 
-    Returns (next_tokens (n,) int32 greedy, k_pool, v_pool)."""
+    ``mesh``: as in :func:`chunk_prefill_fn`.  Returns (next_tokens (n,)
+    int32 greedy, k_pool, v_pool)."""
     _require_paged_stack(cfg, "paged_decode_fn")
     if attn_impl not in ("kernel", "gather", "ref"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
@@ -979,19 +1244,21 @@ def paged_decode_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
             vc = vp[bt].reshape(n, L, *vp.shape[2:])
             o = attn_lib.decode_attention(q[:, 0].contiguous(), kc, vc,
                                           lengths)
-        x, r = _chunk_finish(cfg, p, x, o[:, None])
+        x, r = _chunk_finish(cfg, p, x, o[:, None], mesh=mesh,
+                             batch_axes=batch_axes)
     logits = _lm_logits(cfg, params, x[:, 0], r[:, 0])
     return logits.argmax(-1).to(torch.int32), k_pool, v_pool
 
 
 def paged_chunk_prefill_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
                            tokens, offsets, chunk_lens, wblk, woff, *,
-                           block_size: int):
+                           block_size: int, mesh=None, batch_axes=("data",)):
     """Chunked prefill over the paged pool: write each chunk's KV into the
     rows' blocks (in place), then attend through a gathered contiguous
     view.  wblk/woff: (n, C) physical (block, offset) of every chunk token
-    (``wblk == n_blocks`` marks a dropped write).  Returns (last_logits
-    (n, V), k_pool, v_pool)."""
+    (``wblk == n_blocks`` marks a dropped write).  ``mesh``: as in
+    :func:`chunk_prefill_fn`.  Returns (last_logits (n, V), k_pool,
+    v_pool)."""
     _require_paged_stack(cfg, "paged_chunk_prefill_fn")
     n, C = tokens.shape
     dev = tokens.device
@@ -1014,6 +1281,6 @@ def paged_chunk_prefill_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
         kc = kp[bt].reshape(n, L, *kp.shape[2:])
         vc = vp[bt].reshape(n, L, *vp.shape[2:])
         o = attn_lib.chunk_attention(q, kc, vc, q_pos=posmat, kv_len=kv_len)
-        x, r = _chunk_finish(cfg, p, x, o)
+        x, r = _chunk_finish(cfg, p, x, o, mesh=mesh, batch_axes=batch_axes)
     return (_lm_logits(cfg, params, _last(x, chunk_lens, C),
                        _last(r, chunk_lens, C)), k_pool, v_pool)

@@ -4,8 +4,9 @@ with logging and checkpointing, the reference's
 
 The reference jits its step; here it runs eagerly, gradients by autograd
 through :func:`repro_torch.models.loss_fn` (on a card: K2 with its
-backward kernel at every norm).  The port runs on one card, so the mesh
-arguments must be None (a mesh is ROADMAP Queue A item 12b).
+backward kernel at every norm).  Training runs on one card, so the mesh
+arguments must be None: training under a mesh is ROADMAP Queue A item
+12c (item 12b ported the mesh for serving).
 """
 from __future__ import annotations
 
@@ -62,13 +63,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, mesh=None,
     batch into that many microbatches, one after another, summing their
     gradients in float32 and dividing by the count.  ``donate``: the step
     updates params and opt_state in place (see ``adamw_update``).
-    ``mesh``, ``act_spec`` and ``grad_shardings`` must be None (ROADMAP
-    Queue A item 12b); ``batch_axes`` only names a mesh's axes."""
+    ``mesh``, ``act_spec`` and ``grad_shardings`` must be None (training
+    under a mesh is ROADMAP Queue A item 12c); ``batch_axes`` only names a
+    mesh's axes."""
     if mesh is not None or act_spec is not None or grad_shardings is not None:
         raise NotImplementedError(
-            "make_train_step: meshes and sharding are not ported yet "
-            "(ROADMAP Queue A item 12b); pass mesh=None, act_spec=None, "
-            "grad_shardings=None")
+            "make_train_step: training under a mesh is not ported yet "
+            "(ROADMAP Queue A item 12c; item 12b ported the mesh for "
+            "serving); pass mesh=None, act_spec=None, grad_shardings=None")
     cdt = torch_dtype(compute_dtype)
 
     def cast(p):

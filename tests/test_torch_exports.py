@@ -31,11 +31,6 @@ NOT_YET = {
         "ssm_chunk_scan": "the call is ops.ssm_chunk_scan",
         "swap_best": "the call is ops.swap_best",
     },
-    "launch": dict.fromkeys(
-        ["ShardingRules", "activation_spec", "batch_axes_for",
-         "batch_shardings", "cache_shardings", "make_cpu_mesh",
-         "make_production_mesh", "param_shardings"],
-        "ROADMAP Queue A item 12 (mesh and launch tools)"),
 }
 # packages the port does not mirror: the analysis passes scan the port
 # from the reference package (ROADMAP, Port rules)
