@@ -41,7 +41,15 @@ result line):
    from a nonzero initial state and at both families' widths with the
    chunk of 128 that a prefill of 128 tokens or more gets, held against
    its plain version at 1e-3 (y and the final state); each case also
-   times its scores pass alone and prints its share of the bound.  The
+   times its scores pass alone and prints its share of the bound.  K5's
+   backward (``ssm_chunk_scan_bwd``) at zamba2's train shape (B=2,
+   S=4096, H=32, dk=64, dv=128, chunk 128), at xlstm's widths (H=4,
+   dk=512, dv=513) at chunk 128, from an initial state with a gradient
+   of the final state, and at a ragged S padded to the chunk, float32:
+   against its plain version and both against autograd of the plain
+   forward, every gradient within 1e-3 of its largest entry (each
+   gradient's error printed), the same bits on a second call, timed
+   beside its bound (library: none).  The
    BF-IO swap-search kernel (K4) at the fleet router's shape (C=1, G=4,
    N=64, W=1, integer loads), at pod scale (C=8, G=32, N=512, W=9,
    random floats, ragged ``valid``, ``assign`` with -1s) and at
@@ -87,7 +95,12 @@ result line):
    same batches (loss histories within 1e-5 relative, parameters within
    1e-4), the CPU's checkpoint after four steps resumed on the card to the
    CPU's fifth loss, and ``python -m repro_torch.launch.train --arch
-   granite-8b --smoke --steps 4`` on the card.
+   granite-8b --smoke --steps 4`` on the card.  Training's gradient for
+   zamba2-1.2b-smoke and xlstm-350m-smoke (float32, 4 x 160 tokens, K5
+   at chunk 128): the card's (K5 and its backward) within 1e-4 of each
+   leaf's largest entry of the card's with K5's plain version, and of the
+   CPU's beyond that control's own distance from it; K5's backward
+   launched.
 5. The single-engine path: ``repro_torch.launch.serve`` on full
    granite-8b (36 layers, bf16, seeded random weights), paged backend,
    bfio_h8, 4 workers x 8 slots, 32 requests of 16 new tokens.  Launch
@@ -140,8 +153,6 @@ result line):
    (``launch/dryrun.py``, granite-8b x decode_32k with ``--decode-opt``
    and qwen3-moe-30b-a3b x decode_32k) and the roofline over their
    records, as subprocesses, their numbers modelled.
-   ``python3 chip_smoke.py --phase mesh`` runs this path alone after the
-   build (no result line).
 8. The device-loop path: ``make_device_serving_loop`` at G=32 x B=16,
    wait_cap 1024, 1,024 requests (the demo's bimodal mix scaled by 8),
    in chunks of 16 steps until it drains (at most 400).  Every request
@@ -157,12 +168,32 @@ result line):
    backward at least 17 launches a step each.  Prints each step's loss,
    the mean step ms, the peak memory and the model FLOPs' share of 989
    TFLOP/s.
+10. The hybrid train path: ``train`` on full zamba2-1.2b (not cut: 32
+   Mamba2 blocks, 6 shared-attention applications, 1.01 B parameters),
+   batch 2 x 4096, 4 steps, remat, the launcher's AdamW.  One gradient
+   first: every leaf finite, and nonzero wherever the smoke config's CPU
+   gradient is nonzero for a leaf of its kind.  Counters zeroed just
+   before and read just after: K5 at least 64 and its backward at least
+   32 launches a step, K2 and its backward on every norm.  Prints the
+   mean step ms, the peak memory and the model FLOPs' share.
+11. The mesh train path: full-width granite-8b cut to 2 layers under the
+   (1, 1) NCCL mesh, placed by ``param_shardings(mode="train")``; one
+   step of ``make_train_step(mesh=..., grad_shardings=...,
+   act_spec=...)`` against ``mesh=None`` on the same weights and batch
+   (2 x 4096): loss, parameters, m and v bit for bit, K2 and its backward
+   on the shards, each step's ms printed; then ``python -m
+   repro_torch.launch.train --arch granite-8b --smoke --steps 2`` on the
+   card under its (1, 1) mesh, as a subprocess.
+
+``python3 chip_smoke.py --phase NAME ...`` runs one or more of ``mesh``,
+``ssm_bwd``, ``cross_train_ssm``, ``train_zamba2`` and ``mesh_train``
+alone after the build (no result line).
 
 The second-to-last line is ``{"kernels": [...]}`` (each kernel's launches
 by path under ``launches_by_path``: engine, moe, vlm, fleet, the four
-slot paths, ``slot_granite_ref``, ``mesh``, ``device_loop`` and
-``train``; the
-serving paths must launch no ``rms_norm_bwd``); the last line is
+slot paths, ``slot_granite_ref``, ``mesh``, ``device_loop``, ``train``,
+``train_zamba2`` and ``mesh_train``; the serving paths must launch no
+``rms_norm_bwd`` and no ``ssm_chunk_scan_bwd``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is disabled for matmuls and
 cuDNN so float32 comparisons are float32.
 """
@@ -1070,6 +1101,142 @@ def phase_ssm_scan(dev, flush):
                 cases=[{k: c[k] for k in _SSM_KEYS} for c in cases[1:]])
 
 
+def _ssm_bwd_case(dev, flush, B, S, H, dk, dv, chunk, *, seed,
+                  init=False, dstate=False, pad_to=None, reps=20):
+    """K5's backward on float32 inputs (the reference's fixture) against
+    its plain version, and both against autograd of the plain forward, on
+    the same inputs: every gradient within 1e-3 of its largest entry, the
+    same bits on a second call.  ``pad_to``: S is ragged and padded with
+    zero steps (no decay, no input) to ``pad_to``, as ``ops`` pads it, y's
+    gradient zero there.  Timed beside its bound and its plain version."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssm_scan as ss
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+    Sp = pad_to or S
+    pad = Sp - S
+
+    def padseq(x):
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+    q, k = padseq(rnd(B, S, H, dk)), padseq(rnd(B, S, H, dk))
+    v = padseq(rnd(B, S, H, dv))
+    a = padseq(-rnd(B, S, H).abs())
+    gi = padseq(rnd(B, S, H).abs())
+    s0 = rnd(B, H, dk, dv, scale=0.1) if init else None
+    dy = padseq(rnd(B, S, H, dv))
+    ds = rnd(B, H, dk, dv) if dstate else None
+    args = (q, k, v, a, gi, dy, ds)
+
+    def fn():
+        return ss.ssm_chunk_scan_bwd(*args, chunk=chunk, initial_state=s0)
+
+    def plain():
+        return ss.ssm_chunk_scan_bwd_plain(*args, chunk=chunk,
+                                           initial_state=s0)
+    got, again, want = fn(), fn(), plain()
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v, a, gi)]
+    si = None if s0 is None else s0.clone().requires_grad_(True)
+    y, st = ss.ssm_chunk_scan_plain(*ins, chunk=chunk, initial_state=si)
+    loss = (y * dy).sum() + ((st * ds).sum() if dstate else 0.0)
+    auto = torch.autograd.grad(loss, ins + ([si] if si is not None else []))
+    del y, st, loss, ins
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "d(log_decay)", "d(gate)", "d(initial)")
+    errs, abs_errs, auto_errs = {}, {}, {}
+    for name, x, x2, w, au in zip(names, got, again, want,
+                                  list(auto) + [None]):
+        if w is None:
+            continue
+        check(torch.isfinite(x).all().item(), f"ssm_chunk_scan_bwd {name}: "
+                                              f"non-finite")
+        check(torch.equal(x, x2), f"ssm_chunk_scan_bwd {name}: two calls "
+                                  f"on the same inputs differ")
+        scale = max(float(w.abs().max()), 1e-30)
+        abs_errs[name] = float((x - w).abs().max())
+        errs[name] = abs_errs[name] / scale
+        auto_errs[name] = max(float((x - au).abs().max()),
+                              float((w - au).abs().max())) / scale
+        check(errs[name] <= 1e-3 and auto_errs[name] <= 1e-3,
+              f"ssm_chunk_scan_bwd {name}: kernel {errs[name]:.3e}, "
+              f"against autograd {auto_errs[name]:.3e} of its largest "
+              f"entry")
+    ms = time_ms(fn, reps=reps, flush=flush)
+    plain_ms = time_ms(plain, reps=max(reps // 4, 3), flush=flush)
+    # bytes: q, k, v, a, g, dy (and the initial state and the final
+    # state's gradient) read once, every gradient written once.
+    # operations (two flops a multiply-add), per (b, h) and chunk of C
+    # steps (lower triangle t = C (C + 1) / 2): the scores and W v's
+    # counterparts, q k^T and dy v^T, and dq, dk, dv's intra-chunk
+    # products, t (3 dk + 2 dv); the state products, C dk dv each, only
+    # where their state is nonzero: the carry recomputed (n - 1 chunks),
+    # q . S_prev's gradient and dS's update (n - 1, + 1 with an initial
+    # state), dk's and dv's carry terms (n - 1, + 1 with a final-state
+    # gradient).
+    n = Sp // chunk
+    tri = chunk * (chunk + 1) // 2
+    fma = B * H * (n * tri * (3 * dk + 2 * dv) + chunk * dk * dv * (
+        (n - 1) + 2 * (n - 1 + int(init)) + 2 * (n - 1 + int(dstate))))
+    nbytes = 4 * (B * Sp * H * (4 * dk + 4 * dv + 4)
+                  + (2 if init else 0) * B * H * dk * dv
+                  + (B * H * dk * dv if dstate else 0))
+    b_ms, b_by = bound(nbytes, 2.0 * fma)
+    bp = ss.plan(B, Sp, H, dk, dv, chunk, backward=True)
+    return dict(max_abs_err=max(abs_errs.values()), rel_err=errs,
+                autograd_rel_err=max(auto_errs.values()), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / ms, library_ms=None, tile_b=bp.tile_b,
+                workspace_mb=(bp.record_bytes + bp.states_bytes
+                              + bp.parts_bytes) / 1e6,
+                shape=f"B={B} S={S}" + (f" (padded to {Sp})" if pad else "")
+                      + f" H={H} dk={dk} dv={dv} chunk={chunk} f32"
+                      + (", initial state" if init else "")
+                      + (", final-state gradient" if dstate else ""))
+
+
+_SSM_BWD_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "bound_share", "library_ms", "max_abs_err", "rel_err",
+                 "autograd_rel_err", "tile_b", "workspace_mb")
+
+
+def phase_ssm_scan_bwd(dev, flush):
+    """K5's backward at zamba2-1.2b's train shape (B=2, S=4096, H=32,
+    dk=64, dv=128, chunk 128; the row's numbers), at xlstm-350m's widths
+    (H=4, dk=512, dv=513) at chunk 128, from an initial state with a
+    final-state gradient, and at a ragged S padded to the chunk."""
+    cases = [
+        _ssm_bwd_case(dev, flush, 2, 4096, 32, 64, 128, 128, seed=51),
+        _ssm_bwd_case(dev, flush, 2, 1024, 4, 512, 513, 128, seed=52,
+                      reps=10),
+        _ssm_bwd_case(dev, flush, 2, 512, 32, 64, 128, 128, seed=53,
+                      init=True, dstate=True),
+        _ssm_bwd_case(dev, flush, 2, 1000, 32, 64, 128, 128, seed=54,
+                      pad_to=1024),
+    ]
+    for c in cases:
+        errs = ", ".join(f"{k} {v:.2e}" for k, v in c["rel_err"].items())
+        print(f"kernel ssm_chunk_scan_bwd [{c['shape']}]: "
+              f"{c['ms'] * 1e3:.2f} us (bound {c['bound_ms'] * 1e3:.2f} us "
+              f"by {c['bound_by']}, {100 * c['bound_share']:.1f}% of it; dv "
+              f"tile {c['tile_b']}, workspace {c['workspace_mb']:.1f} MB), "
+              f"plain {c['plain_ms'] * 1e3:.2f} us (kernel / plain "
+              f"{c['ms'] / c['plain_ms']:.2f}x), library none; each "
+              f"gradient against the plain version, of its largest entry: "
+              f"{errs}; kernel and plain against autograd of the plain "
+              f"forward within {c['autograd_rel_err']:.2e}")
+    main = cases[0]
+    return dict(name="ssm_chunk_scan_bwd", route="cuda",
+                max_rel_err_all=max(max(c["rel_err"].values())
+                                    for c in cases),
+                source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+                replaces="src/repro/kernels/ssm_scan.py:73",
+                backward_of="ssm_chunk_scan",
+                **{k: main[k] for k in _SSM_BWD_KEYS},
+                max_abs_err_all=max(c["max_abs_err"] for c in cases),
+                cases=[{k: c[k] for k in _SSM_BWD_KEYS} for c in cases[1:]])
+
+
 def phase_cross_device_slot(dev):
     """The slot backend on the CPU and on the card, same float32 weights
     and stream (12 requests over 8 slots: a full-batch wave, then a
@@ -1773,6 +1940,68 @@ def phase_cross_device_train(dev):
                 launcher_s=time.perf_counter() - t0)
 
 
+def phase_cross_device_train_ssm(dev):
+    """Training's gradient for the recurrent families, zamba2-1.2b-smoke
+    and xlstm-350m-smoke in float32 weights and compute: the same weights
+    (the port's seeded init through numpy) and batch (4 x 160 tokens, so
+    every scan runs at the models' chunk of 128 over a padded S) on the
+    CPU (plain versions), on the card (K5 and its backward, K2 and its
+    backward), and on the card with K5's plain version in the kernel's
+    place (a control).  Each leaf of the card's gradient within 1e-4 of
+    its largest entry of the control's (K5 and its backward against their
+    plain versions inside the model), and of the CPU's beyond the
+    control's own distance from the CPU: float32 sums in the card's other
+    kernels and GEMMs already move xlstm's mLSTM gradients (normalised by
+    a running sum) by ~6e-4 of a leaf's largest entry at this input, with
+    or without K5's kernel.  K5's backward launched on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.models import init_params, params_from_numpy
+    from repro_torch.models.layers import tree_map
+
+    def rel(ga, gb):
+        return max(float((a.cpu() - b.cpu()).abs().max())
+                   / max(float(a.abs().max()), 1e-30)
+                   for a, b in zip(ga, gb))
+    out = []
+    for arch in ("zamba2-1.2b", "xlstm-350m"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        weights = tree_map(lambda t: t.numpy(), init_params(cfg, 0,
+                                                            device="cpu"))
+        batch = {k: torch.from_numpy(v) for k, v in next(token_batches(
+            vocab_size=cfg.vocab_size, batch=4, seq_len=160, n_batches=1,
+            seed=8)).items()}
+
+        def grads(d):
+            return _value_and_grads(
+                cfg, params_from_numpy(weights, device=d),
+                {k: v.to(d) for k, v in batch.items()}, torch.float32)
+        loss_cpu, g_cpu = grads("cpu")
+        b0 = ss.ssm_chunk_scan_bwd.launches
+        loss, g_card = grads(dev)
+        torch.cuda.synchronize()
+        n_bwd = ss.ssm_chunk_scan_bwd.launches - b0
+        check(n_bwd > 0, f"cross-device train {cfg.name}: the card's "
+                         f"gradient did not run K5's backward")
+        inner = ops._ssm_chunk_scan
+        ops._ssm_chunk_scan = ss.ssm_chunk_scan_plain
+        try:
+            _, g_ctl = grads(dev)
+        finally:
+            ops._ssm_chunk_scan = inner
+        vs_ctl, vs_cpu, ctl_cpu = (rel(g_ctl, g_card), rel(g_cpu, g_card),
+                                   rel(g_cpu, g_ctl))
+        check(vs_ctl <= 1e-4 and vs_cpu <= ctl_cpu + 1e-4,
+              f"cross-device train {cfg.name}: the card's gradient within "
+              f"{vs_ctl:.3e} of the control's and {vs_cpu:.3e} of the "
+              f"CPU's (the control within {ctl_cpu:.3e} of the CPU's)")
+        out.append((cfg.name, vs_ctl, vs_cpu, ctl_cpu,
+                    [float(loss_cpu), float(loss)], n_bwd))
+    return out
+
+
 def _launch_counts() -> tuple[int, int]:
     from repro_torch.kernels import rms_norm as rk
     return rk.rms_norm.launches, rk.rms_norm_bwd.launches
@@ -1877,6 +2106,248 @@ def phase_train_path(card: str) -> dict:
           f"launches {launches} [{card}]")
     del params, batches
     _free()
+    return launches
+
+
+ZTRAIN_BATCH, ZTRAIN_SEQ, ZTRAIN_STEPS = 2, 4096, 4
+
+
+def _leaf_kinds(tree, prefix=()) -> list:
+    """Each leaf's kind in ``tree_leaves`` order: its path with a layer
+    group's name (``m0`` .. ``m5``, ``m_tail``) replaced by ``mamba``, so
+    that a smoke config's tree and the full one's compare."""
+    import re
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_kinds(
+            tree[k], prefix + ("mamba" if not prefix and re.fullmatch(
+                r"m\d+|m_tail", k) else k,))]
+    return ["/".join(prefix)]
+
+
+def phase_train_path_ssm(card: str) -> dict:
+    """The hybrid family's train path: ``repro_torch.training.train`` on
+    full zamba2-1.2b, not cut (38 layers: 32 Mamba2 blocks and 6
+    applications of the shared attention block, d=2048, 1.01 B
+    parameters, ~18 bytes a parameter), seeded random weights, batch
+    ZTRAIN_BATCH x ZTRAIN_SEQ, ZTRAIN_STEPS steps, remat a layer, the
+    launcher's AdamW.  First one gradient: every parameter leaf finite,
+    and nonzero wherever zamba2-1.2b-smoke's gradient on the CPU is
+    nonzero for a leaf of the same kind.  Counters zeroed just before the
+    training and read just after: K5 at least 2 x 32 launches a step (the
+    forward and the remat pass) and its backward at least 32, K2 and its
+    backward on every norm.  Prints the mean step ms, the peak memory and
+    the model FLOPs' share of 989 TFLOP/s."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.data import token_batches
+    from repro_torch.launch.roofline import H100, analytic_flops
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamWConfig, train
+    scfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"),
+                               dtype="float32")
+    sp = init_params(scfg, 0, device="cpu")
+    sb = {k: torch.from_numpy(v) for k, v in next(token_batches(
+        vocab_size=scfg.vocab_size, batch=2, seq_len=160, n_batches=1,
+        seed=9)).items()}
+    _, sg = _value_and_grads(scfg, sp, sb, torch.float32)
+    live = {kind for kind, g in zip(_leaf_kinds(sp), sg)
+            if float(g.abs().max()) > 0}
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("zamba2-1.2b")
+    sites = _stack_counts(cfg)
+    t0 = time.perf_counter()
+    params = init_params(dataclasses.replace(cfg, dtype="float32"), 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = _numel(params)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in token_batches(vocab_size=cfg.vocab_size,
+                                      batch=ZTRAIN_BATCH, seq_len=ZTRAIN_SEQ,
+                                      n_batches=ZTRAIN_STEPS, seed=0)]
+    before = _zero_and_read(None)
+    loss, grads = _value_and_grads(cfg, params, batches[0])
+    torch.cuda.synchronize()
+    one = _zero_and_read(before)
+    kinds = _leaf_kinds(params)
+    check(len(kinds) == len(grads), "zamba2 train path: leaf count")
+    bad = [k for k, g in zip(kinds, grads)
+           if g is None or not torch.isfinite(g).all().item()
+           or (k in live and not g.abs().max().item() > 0)]
+    check(not bad and bool(torch.isfinite(loss)),
+          f"zamba2 train path: leaves with a non-finite gradient, or zero "
+          f"where the smoke config's is not: {bad[:8]} (loss {float(loss)})")
+    n_scan = sites["scan"]
+    check(one["ssm_chunk_scan"] >= 2 * n_scan
+          and one["ssm_chunk_scan_bwd"] >= n_scan,
+          f"zamba2 train path: one gradient launched K5 "
+          f"{one['ssm_chunk_scan']} and its backward "
+          f"{one['ssm_chunk_scan_bwd']} times, need >= {2 * n_scan} and "
+          f">= {n_scan}")
+    print(f"zamba2 train path: {cfg.name}, not cut ({cfg.n_layers} layers,"
+          f" {n_scan} Mamba2 blocks), {n_par / 1e9:.3f} B parameters "
+          f"(float32 masters), init {init_s:.2f} s; one gradient: loss "
+          f"{float(loss):.4f}, all {len(grads)} leaves finite, nonzero "
+          f"where the smoke config's are ({len(live)} kinds); launches "
+          f"{one} [{card}]")
+    del loss, grads
+    _free()
+    stamps = []
+
+    def log_fn(msg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    opt = AdamWConfig(lr=3e-4, warmup_steps=min(20, ZTRAIN_STEPS // 5),
+                      total_steps=ZTRAIN_STEPS)
+    launches = _zero_and_read(None)
+    t0 = time.perf_counter()
+    params, losses = train(cfg, params=params, batches=batches, opt_cfg=opt,
+                           log_every=1, log_fn=log_fn)
+    launches = _zero_and_read(launches)
+    n = ZTRAIN_STEPS
+    check(len(losses) == n and all(np.isfinite(losses)),
+          f"zamba2 train path: losses {losses}")
+    check(launches["ssm_chunk_scan"] >= 2 * n_scan * n
+          and launches["ssm_chunk_scan_bwd"] >= n_scan * n
+          and launches["rms_norm"] >= sites["norm"] * n
+          and launches["rms_norm_bwd"] >= sites["norm"] * n,
+          f"zamba2 train path: launches {launches} over {n} steps, need K5 "
+          f">= {2 * n_scan * n}, its backward >= {n_scan * n}, K2 and its "
+          f"backward >= {sites['norm'] * n}")
+    steps_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    mean_ms = float(np.mean(steps_ms[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=ZTRAIN_BATCH)
+    flops = analytic_flops(cfg, shape)
+    share = flops["model_flops"] / (mean_ms / 1e3 * H100.peak_flops)
+    for i, (lo, ms) in enumerate(zip(losses, steps_ms)):
+        print(f"zamba2 train path step {i}: loss {lo:.4f}, {ms:.1f} ms "
+              f"[{card}]")
+    print(f"zamba2 train path MEASURED on {torch.cuda.get_device_name(0)}: "
+          f"mean step {mean_ms:.1f} ms (steps 1..{n - 1}), peak memory "
+          f"{peak:.2f} GB; model FLOPs a step {flops['model_flops']:.4e} "
+          f"(6 N D, N = {cfg.active_params() / 1e9:.3f} B, D = "
+          f"{ZTRAIN_BATCH} x {ZTRAIN_SEQ}), {share:.1%} of 989 TFLOP/s "
+          f"bf16; launches {launches} [{card}]")
+    del params, batches
+    _free()
+    return launches
+
+
+MESH_TRAIN_LAYERS = 2
+
+
+def phase_mesh_train_path(dev, card: str) -> dict:
+    """Training under a mesh on the card: full-width granite-8b cut to
+    MESH_TRAIN_LAYERS layers, float32 masters (bf16 compute), batch
+    TRAIN_BATCH x TRAIN_SEQ, under the (1, 1) NCCL mesh of
+    :func:`_mesh_group`, params placed by ``param_shardings(mode="train")``
+    (FSDP's rules; at (1, 1) every placement is replicated), the batch by
+    ``batch_shardings``, the residual by ``activation_spec``.  One step of
+    ``make_train_step(mesh=..., grad_shardings=..., act_spec=...)``
+    against ``mesh=None`` from the same weights and batch (each timed on
+    its second call): the loss, the new parameters and AdamW's m and v
+    (m is 0.1 x the clipped gradient after one step) bit for bit: the
+    mesh runs the same kernels on the same local tensors.  Counters zeroed
+    just before the timed mesh step and read just after: K2 and its
+    backward on the shards.  And ``python -m repro_torch.launch.train
+    --arch granite-8b --smoke --steps 2`` on the card, under its (1, 1)
+    mesh, as a subprocess started first (most of its ~25 s is imports and
+    the group's start) and joined at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.launch import mesh as pm
+    from repro_torch.models import init_params, param_axes
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t_launch = time.perf_counter()
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "granite-8b", "--smoke", "--steps", "2"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    _free()
+    cfg = dataclasses.replace(get_config("granite-8b"),
+                              n_layers=MESH_TRAIN_LAYERS)
+    L = cfg.n_layers
+    params = init_params(dataclasses.replace(cfg, dtype="float32"), 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(token_batches(
+        vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        n_batches=1, seed=0)).items()}
+    opt_cfg = AdamWConfig()
+    timed = {}
+
+    def run(step, p, b):
+        step(p, init_opt_state(p), b)          # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(p, init_opt_state(p), b)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+    (l0, p0, o0), timed["none"] = run(make_train_step(cfg, opt_cfg),
+                                      params, batch)
+    _mesh_group()
+    try:
+        mesh = pm._make_mesh((1, 1), ("data", "model"), "cuda")
+        sh = pm.param_shardings(param_axes(cfg), cfg, mesh, mode="train")
+        dp = pm.distribute_tree(params, sh)
+        db = pm.distribute_tree(batch, pm.batch_shardings(
+            batch, mesh, TRAIN_BATCH))
+        step = make_train_step(cfg, opt_cfg, mesh=mesh, grad_shardings=sh,
+                               act_spec=pm.activation_spec(cfg, mesh,
+                                                           TRAIN_BATCH))
+        step(dp, init_opt_state(dp), db)
+        torch.cuda.synchronize()
+        launches = _zero_and_read(None)
+        t0 = time.perf_counter()
+        l1, p1, o1 = step(dp, init_opt_state(dp), db)
+        torch.cuda.synchronize()
+        timed["mesh"] = (time.perf_counter() - t0) * 1e3
+        launches = _zero_and_read(launches)
+        check(torch.equal(l0, l1.full_tensor()),
+              f"mesh train path: loss {float(l0)} without the mesh, "
+              f"{float(l1.full_tensor())} under it")
+        worst = 0.0
+        for a, b in zip(tree_leaves((p0, o0.m, o0.v)),
+                        tree_leaves((p1, o1.m, o1.v))):
+            b = b.full_tensor()
+            worst = max(worst, float((a - b).abs().max()))
+        check(worst == 0.0, f"mesh train path: parameters, m or v differ "
+                            f"by up to {worst:.3e} from mesh=None's")
+        check(launches["rms_norm"] >= 2 * (2 * L + 1)
+              and launches["rms_norm_bwd"] >= 2 * L + 1,
+              f"mesh train path: launches {launches}, need K2 >= "
+              f"{2 * (2 * L + 1)} and its backward >= {2 * L + 1}")
+        n_par = _numel(params)
+        del dp, db, p1, o1, l1
+    finally:
+        dist.destroy_process_group()
+    del params, p0, o0, batch
+    _free()
+    print(f"mesh train path MEASURED on {card}: granite-8b at full width "
+          f"cut to {L} layers ({n_par / 1e9:.3f} B parameters, float32 "
+          f"masters, bf16 compute), batch {TRAIN_BATCH} x {TRAIN_SEQ}, one "
+          f"step of make_train_step: mesh=None {timed['none']:.1f} ms, under"
+          f" the (1, 1) NCCL mesh (FSDP rules, grad_shardings, act_spec) "
+          f"{timed['mesh']:.1f} ms; loss {float(l0):.4f}, loss, parameters,"
+          f" m and v bit for bit; launches {launches}")
+    try:
+        so, se = launcher.communicate(timeout=300)
+    finally:
+        if launcher.poll() is None:
+            launcher.kill()
+    check(launcher.returncode == 0 and "[train] done: loss" in so
+          and "mesh {'data': 1, 'model': 1}" in so,
+          f"launch.train under the (1, 1) mesh on the card failed "
+          f"({launcher.returncode}): {so[-2000:]}{se[-2000:]}")
+    print(f"mesh train path: launch.train --arch granite-8b --smoke --steps "
+          f"2 on the card, (1, 1) NCCL mesh, "
+          f"{time.perf_counter() - t_launch:.1f} s from its start: "
+          f"{so.strip().splitlines()[-1]}")
     return launches
 
 
@@ -2164,8 +2635,8 @@ def _free() -> None:
 
 
 def _wrappers() -> dict:
-    """The kernel wrappers (the five kernels and K2's backward), each with
-    its ``launches`` counter."""
+    """The kernel wrappers (the five kernels and the backwards of K2 and
+    K5), each with its ``launches`` counter."""
     from repro_torch.kernels import bfio_swap as bs
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
@@ -2176,7 +2647,8 @@ def _wrappers() -> dict:
             "paged_decode_attention": pa.paged_decode_attention,
             "bfio_swap": bs.swap_best,
             "decode_attention": da.decode_attention,
-            "ssm_chunk_scan": ss.ssm_chunk_scan}
+            "ssm_chunk_scan": ss.ssm_chunk_scan,
+            "ssm_chunk_scan_bwd": ss.ssm_chunk_scan_bwd}
 
 
 def _zero_and_read(before):
@@ -2229,10 +2701,18 @@ def main() -> None:
                 print(f"ptxas {src}: {line.strip()}")
 
     if sys.argv[1:2] == ["--phase"]:
-        # one path alone, for a quick check (not the smoke run: no result
-        # line); the only one so far is "mesh"
-        check(sys.argv[2:3] == ["mesh"], f"unknown phase {sys.argv[2:]}")
-        print(json.dumps({"mesh": phase_mesh_path(dev, card)}))
+        # one phase alone, for a quick check (not the smoke run: no result
+        # line)
+        quick = {"mesh": lambda: phase_mesh_path(dev, card),
+                 "ssm_bwd": lambda: phase_ssm_scan_bwd(dev, torch.empty(
+                     64 * 1024 * 1024, dtype=torch.int32, device=dev)),
+                 "cross_train_ssm": lambda: phase_cross_device_train_ssm(
+                     dev),
+                 "train_zamba2": lambda: phase_train_path_ssm(card),
+                 "mesh_train": lambda: phase_mesh_train_path(dev, card)}
+        for name in sys.argv[2:]:
+            check(name in quick, f"unknown phase {name}")
+            print(json.dumps({name: quick[name]()}, default=str))
         return
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
@@ -2245,6 +2725,8 @@ def main() -> None:
     for phase in (phase_paged_attention, phase_decode_attention):
         kernels.append(dict(phase(dev, flush), timing_floor_ms=floor_ms))
     kernels.append(dict(phase_ssm_scan(dev, flush),
+                        timing_floor_ms=floor_ms))
+    kernels.append(dict(phase_ssm_scan_bwd(dev, flush),
                         timing_floor_ms=floor_ms))
     del flush
 
@@ -2298,6 +2780,15 @@ def main() -> None:
           f"{tr['resume_param_err']:.3e}; launch.train --smoke --steps 4 "
           f"on the card ({tr['launcher_s']:.1f} s): {tr['launcher']} "
           f"[{card}]")
+    for name, vs_ctl, vs_cpu, ctl_cpu, losses, n_bwd in \
+            phase_cross_device_train_ssm(dev):
+        print(f"cross-device train: {name} f32, 4 x 160 tokens (K5 at chunk "
+              f"128 over S padded to 256), loss {losses[0]:.6f} on the cpu "
+              f"and {losses[1]:.6f} on the card; one gradient on the card "
+              f"within {vs_ctl:.3e} of each leaf's largest entry of the "
+              f"card's with K5's plain version and within {vs_cpu:.3e} of "
+              f"the CPU's (that control {ctl_cpu:.3e} from the CPU's); K5's"
+              f" backward {n_bwd} launches on the card [{card}]")
 
     paths = {"engine": phase_paged_path("granite-8b", "main path")}
     paths["moe"] = phase_paged_path("qwen3-moe-30b-a3b", "moe path")
@@ -2312,11 +2803,15 @@ def main() -> None:
                                                       engine_mode="ref"),
                   "mesh": phase_mesh_path(dev, card),
                   "device_loop": phase_device_loop_path(),
-                  "train": phase_train_path(card)})
+                  "train": phase_train_path(card),
+                  "train_zamba2": phase_train_path_ssm(card),
+                  "mesh_train": phase_mesh_train_path(dev, card)})
 
+    train_paths = ("train", "train_zamba2", "mesh_train")
     for p, counts in paths.items():
-        check(p == "train" or counts["rms_norm_bwd"] == 0,
-              f"{p} path: the serving path ran K2's backward")
+        check(p in train_paths or counts["rms_norm_bwd"]
+              == counts["ssm_chunk_scan_bwd"] == 0,
+              f"{p} path: the serving path ran a kernel's backward")
     rows = []
     for k in kernels:
         row = {key: k[key] for key in (
@@ -2330,7 +2825,8 @@ def main() -> None:
         row["matched"] = True
         row.update({key: k[key] for key in (
             "kernel_only_ms", "scores_ms", "bound_share", "backward_of",
-            "dscale_rel_err",
+            "dscale_rel_err", "rel_err", "max_rel_err_all",
+            "autograd_rel_err",
             "bound_ms_chunked_form", "at_pod_scale",
             "shape", "max_abs_err_all", "cases", "timing_floor_ms")
             if key in k})

@@ -5,8 +5,10 @@ autograd differentiates as it stands.  On a CUDA tensor a wrapper
 launches its kernel through ctypes into a fresh output that has no
 ``grad_fn``, so a wrapper whose kernel has no backward refuses to run
 when autograd would need one, rather than cut the gradient silently.
-K2 (``rms_norm``) has its backward (``rms_norm_bwd``) and takes the
-autograd path instead.
+K2 (``rms_norm``, backward ``rms_norm_bwd``) and K5 (``ssm_chunk_scan``,
+backward ``ssm_chunk_scan_bwd``) take the autograd path instead.  The
+decode attentions, K1 and K3, refuse: they serve inference only, and
+training attends through ``models/attention.blocked_causal_attention``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ def refuse_grad(name: str, *tensors) -> None:
     if wants_grad(*tensors):
         raise RuntimeError(
             f"{name}: the Hopper kernel has no backward, and an input "
-            f"requires grad with grad mode on (ROADMAP Queue A item 14 "
-            f"brings the kernels' backward passes); call it under "
+            f"requires grad with grad mode on (it serves inference only, "
+            f"as ROADMAP Queue A item 14 settled); call it under "
             f"torch.no_grad(), or on CPU tensors, whose plain path autograd "
             f"differentiates")

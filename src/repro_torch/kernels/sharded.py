@@ -16,7 +16,7 @@ from typing import Callable, Sequence
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 __all__ = ["is_dtensor", "kept", "as_dtensor", "on_shards", "replicated",
-           "on_batch_shards"]
+           "on_batch_shards", "grad_placements"]
 
 
 def is_dtensor(x) -> bool:
@@ -44,11 +44,27 @@ def as_dtensor(t, mesh):
                               run_check=False)
 
 
+def grad_placements(in_placements: Sequence) -> tuple:
+    """The placements of each input's gradient after ``fn`` ran on the
+    local shards: a sharded dim's gradient is sharded the same way; on a
+    mesh dim that cuts some input, each rank's gradient of an input that
+    it holds whole is its part of a sum (``Partial``); on a mesh dim that
+    cuts nothing, every rank computed the same (``Replicate``)."""
+    from torch.distributed.tensor import Partial
+    cut = [any(isinstance(pl[m], Shard) for pl in in_placements)
+           for m in range(len(in_placements[0]))]
+    return tuple(tuple(p if isinstance(p, Shard)
+                       else Partial() if cut[m] else Replicate()
+                       for m, p in enumerate(pl)) for pl in in_placements)
+
+
 def on_shards(fn: Callable, args: Sequence, in_placements: Sequence,
               out_placements, mesh):
     """``fn`` on the local shards of ``args`` (DTensors), each
     redistributed first to its placements; the outputs are DTensors with
-    ``out_placements``."""
+    ``out_placements``.  Under autograd each input's gradient comes back
+    with :func:`grad_placements`, and the redistribution on the way in
+    carries it back to the input's own placements."""
     from torch.distributed.tensor.experimental import local_map
     from torch.distributed.tensor.placement_types import Placement
     # local_map reads a tuple as one entry per output, a list as the
@@ -57,8 +73,9 @@ def on_shards(fn: Callable, args: Sequence, in_placements: Sequence,
         out = list(out_placements)
     else:
         out = tuple(list(p) for p in out_placements)
-    return local_map(fn, out_placements=out,
-                     in_placements=tuple(tuple(p) for p in in_placements),
+    in_pl = tuple(tuple(p) for p in in_placements)
+    return local_map(fn, out_placements=out, in_placements=in_pl,
+                     in_grad_placements=grad_placements(in_pl),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
 
 

@@ -32,7 +32,36 @@ both passes before any launch and refuses what does not fit.
 raises.  ``ssm_chunk_scan.launches`` counts calls that launched them.
 On DTensors (a model under a mesh) :func:`on_shards` runs a scan on each
 local shard with the batch rows as v shards them and the time axis, the
-heads and the state dims whole.
+heads and the state dims whole; under autograd each input's gradient
+comes back with its placements (``kernels/sharded.grad_placements``).
+
+Training.  The reference differentiates its jnp ``chunked_linear_attention``
+(no TPU kernel has a backward), so :func:`ssm_chunk_scan_bwd` replaces no
+TPU kernel: on a CUDA tensor that requires grad the wrapper goes through
+a ``torch.autograd.Function`` whose forward is the same launch and whose
+backward is the hand-written ``ssm_chunk_scan_bwd_launch`` (same source,
+float32 only: the model hands the scan float32 q, k and v; bfloat16 with
+grad raises).  It computes the exact gradient of the chunked form above,
+clip included, from y's gradient and the final state's: dS, the gradient
+of the state leaving a chunk, is carried backwards,
+
+    dS_prev = exp(clip(A_C)) dS + sum_t exp(clip(A_t)) q_t dy_t^T,
+
+and each chunk's dq, dk, dv, d(gate) and dA (summed from the chunk's end
+into d(log_decay)) come from its scores, dS and the state entering it.
+It is bound by its float32 operations (the scores and four C x C
+products a chunk, and the state products, ~51.5 GFLOP at zamba2's train
+shape).  Its design: the forward's two passes recompute the state
+entering every chunk into a workspace rather than keep it from the
+forward (nothing is saved but the inputs); one block a (b, h, dv tile)
+walks the chunks in reverse with its dS slice in shared memory, every
+product a block-wide loop over small register tiles; dv and
+d(initial_state) are written whole, while dq, dk, dA and d(gate), which
+sum over dv, are written as each tile's part and added by a second pass
+in tile order, with no atomics, so that a run repeats bit for bit.
+:func:`plan` sizes it (``backward=True``); :func:`ssm_chunk_scan_bwd_plain`
+is the same gradient in plain PyTorch, the kernel's yardstick;
+``ssm_chunk_scan_bwd.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -41,15 +70,18 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .grad import refuse_grad
+from .grad import wants_grad
 from .sharded import as_dtensor, is_dtensor, kept
 from .sharded import on_shards as _on_shards
 
-__all__ = ["ssm_chunk_scan", "ssm_chunk_scan_plain", "plan", "Plan",
+__all__ = ["ssm_chunk_scan", "ssm_chunk_scan_plain", "ssm_chunk_scan_bwd",
+           "ssm_chunk_scan_bwd_plain", "plan", "Plan", "BwdPlan",
            "scores_pass"]
 
 CLIP = 60.0
 TILES_V = (64, 32)   # the scan pass's dv tile, the widest that fits first
+TILES_B = (64, 32, 16)  # the backward pass's dv tile, likewise
+_SLAB_BWD = 16       # dk rows a backward-pass slab
 _SLAB_SCORES = 32    # dk columns a scores-pass slab
 _SLAB_SCAN = 64      # dk columns a scan-pass slab
 _SMEM_MAX = 232448   # the H100's shared memory per block, in bytes
@@ -108,6 +140,91 @@ def ssm_chunk_scan_plain(q, k, v, log_decay, gate, *, chunk: int,
     return y.reshape(B, S, H, dv).to(v.dtype), state
 
 
+def _live(x):
+    """Where ``exp(clip(x))`` passes a gradient: inside the clip, as
+    autograd of ``torch.clamp`` has it."""
+    return ((x >= -CLIP) & (x <= CLIP)).float()
+
+
+def ssm_chunk_scan_bwd_plain(q, k, v, log_decay, gate, dy, dstate=None, *,
+                             chunk: int,
+                             initial_state: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the backward kernel: the gradient of
+    :func:`ssm_chunk_scan_plain` written out, not taken by autograd.  The
+    intra-chunk terms of every chunk at once, then the reverse recursion
+    over chunks carrying dS, the gradient of the state leaving a chunk:
+
+        dS_prev = exp(clip(A_C)) dS + sum_t exp(clip(A_t)) q_t dy_t^T
+
+    with the chunk's incoming states recomputed by the forward's carry.
+    d(log_decay) is the gradient of A = cumsum(a) summed from the chunk's
+    end.  dy: y's gradient (B, S, H, dv); dstate: the final state's
+    gradient (B, H, dk, dv) or None (zero).  Returns float32 (dq, dk, dv,
+    d(log_decay), d(gate), d(initial_state) or None)."""
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    assert S % chunk == 0, (S, chunk)
+    n = S // chunk
+
+    def c(x):
+        return x.float().reshape((B, n, chunk) + tuple(x.shape[2:]))
+
+    qc, kc, vc, ac, gc, dyc = c(q), c(k), c(v), c(log_decay), c(gate), c(dy)
+    A = torch.cumsum(ac, dim=2)                       # (B, n, C, H)
+    A_tot = A[:, :, -1]                               # (B, n, H)
+    tri = torch.tril(torch.ones((chunk, chunk), device=q.device))
+    At = A.permute(0, 1, 3, 2)                        # (B, n, H, C)
+    x = At[..., :, None] - At[..., None, :]
+    dec = _exp_clip(x) * tri
+    gs = gc.permute(0, 1, 3, 2)[..., None, :]         # g_s
+    z = torch.einsum("bnchd,bnshd->bnhcs", qc, kc) * dec
+    w = z * gs
+    D = torch.einsum("bnchv,bnshv->bnhcs", dyc, vc)   # dy_t . v_s
+    dm = D * dec * gs
+    dq = torch.einsum("bnhcs,bnshd->bnchd", dm, kc)
+    dk_ = torch.einsum("bnhcs,bnchd->bnshd", dm, qc)
+    dv_ = torch.einsum("bnhcs,bnchv->bnshv", w, dyc)
+    P = D * w * _live(x) * tri
+    dA = (P.sum(-1) - P.sum(-2)).permute(0, 1, 3, 2)  # (B, n, C, H)
+    dg = (D * z).sum(-2).permute(0, 1, 3, 2)
+    # the states entering each chunk, as the forward carries them
+    eA = _exp_clip(A)                                 # (B, n, C, H)
+    ec = _exp_clip(A_tot[:, :, None, :] - A)          # exp(clip(A_C - A_s))
+    wk = ec * gc
+    U = torch.einsum("bnchk,bnchv->bnhkv", kc * wk[..., None], vc)
+    state = (torch.zeros((B, H, dk, dv), dtype=torch.float32,
+                         device=q.device)
+             if initial_state is None else initial_state.float())
+    prev = []
+    for i in range(n):
+        prev.append(state)
+        state = _exp_clip(A_tot[:, i])[..., None, None] * state + U[:, i]
+    dS = (torch.zeros_like(state) if dstate is None else dstate.float())
+    for i in reversed(range(n)):
+        sp = prev[i]
+        inter = torch.einsum("bchv,bhkv->bchk", dyc[:, i], sp)
+        dq[:, i] += eA[:, i, ..., None] * inter
+        dA[:, i] += eA[:, i] * _live(A[:, i]) * (qc[:, i] * inter).sum(-1)
+        kds = torch.einsum("bchk,bhkv->bchv", kc[:, i], dS)
+        dv_[:, i] += wk[:, i, ..., None] * kds
+        dk_[:, i] += wk[:, i, ..., None] * torch.einsum(
+            "bhkv,bchv->bchk", dS, vc[:, i])
+        r = (kds * vc[:, i]).sum(-1)                  # k_s . dS v_s
+        dg[:, i] += ec[:, i] * r
+        Q = wk[:, i] * r * _live(A_tot[:, i, None, :] - A[:, i])
+        dA[:, i] -= Q
+        a_tot = A_tot[:, i]
+        dA[:, i, -1] += Q.sum(1) + _exp_clip(a_tot) * _live(a_tot) * (
+            dS * sp).sum((-1, -2))
+        dS = (_exp_clip(a_tot)[..., None, None] * dS
+              + torch.einsum("bchk,bchv->bhkv", eA[:, i, ..., None]
+                             * qc[:, i], dyc[:, i]))
+    da = torch.flip(torch.cumsum(torch.flip(dA, [2]), dim=2), [2])
+    return (dq.reshape(B, S, H, dk), dk_.reshape(B, S, H, dk),
+            dv_.reshape(B, S, H, dv), da.reshape(B, S, H),
+            dg.reshape(B, S, H), None if initial_state is None else dS)
+
+
 class Plan(NamedTuple):
     """The launch plan of one call: the chunk padded to the kernel's
     template (``cp``), the scan pass's dv tile, each pass's shared memory
@@ -135,11 +252,59 @@ def _scan_smem(cp: int, dk: int, tile_v: int) -> int:
                 + 2 * cp * (_SLAB_SCAN + 4) + 2 * cp)
 
 
-def plan(B: int, S: int, H: int, dk: int, dv: int, chunk: int) -> Plan:
+class BwdPlan(NamedTuple):
+    """The launch plan of one backward call: the forward's plan (its passes
+    recompute the chunks' states), the backward pass's dv tile and the
+    number of tiles, its shared memory a block, and its workspaces in
+    bytes: the backward records, the states entering every chunk, and the
+    tiles' parts of dq, dk, d(log_decay) and d(gate)."""
+    fwd: Plan
+    tile_b: int
+    n_tiles: int
+    bwd_smem: int
+    record_bytes: int
+    states_bytes: int
+    parts_bytes: int
+
+
+def _bwd_smem(cp: int, dk: int, tb: int) -> int:
+    # dS, v, dy, X, Y, q, k and r slabs, an S_prev slab, 8 vectors, dsd, 2
+    lv, lx, lk = tb + 1, cp + 1, _SLAB_BWD + 1
+    dk_pad = -(-dk // _SLAB_BWD) * _SLAB_BWD
+    return 4 * (dk_pad * lv + 2 * cp * lv + 2 * cp * lx + 3 * cp * lk
+                + _SLAB_BWD * lv + 8 * cp + _SLAB_BWD + 2)
+
+
+def _plan_bwd(fwd: Plan, B: int, S: int, H: int, dk: int, dv: int,
+              chunk: int) -> BwdPlan:
+    cp = fwd.cp
+    fits = [tb for tb in TILES_B
+            if tb <= cp and _bwd_smem(cp, dk, tb) <= _SMEM_MAX]
+    if not fits:
+        raise ValueError(f"ssm_chunk_scan backward kernel: chunk={chunk}, "
+                         f"dk={dk} needs {_bwd_smem(cp, dk, TILES_B[-1])} "
+                         f"bytes of shared memory a block at the narrowest "
+                         f"dv tile, more than the {_SMEM_MAX} a block has")
+    tb = fits[0]
+    nt = -(-dv // tb)
+    if nt > _GRID_Y_MAX:
+        raise ValueError(f"ssm_chunk_scan backward kernel: dv={dv} needs "
+                         f"more than {_GRID_Y_MAX} tiles of {tb}")
+    n = S // chunk
+    return BwdPlan(fwd, tb, nt, _bwd_smem(cp, dk, tb),
+                   4 * B * H * n * (cp * cp + 3 * cp),
+                   4 * B * H * n * dk * dv,
+                   4 * nt * B * S * H * (2 * dk + 2))
+
+
+def plan(B: int, S: int, H: int, dk: int, dv: int, chunk: int, *,
+         backward: bool = False):
     """Size both passes of one call, as ``ssm_scan_plan_bytes`` in the .cu
     file does.  The dv tile is the widest of ``TILES_V`` whose scan block
-    fits the card's shared memory.  Raises ValueError for a shape the
-    kernel cannot take, before anything is allocated or launched."""
+    fits the card's shared memory.  With ``backward`` it sizes the backward
+    call as well (``ssm_scan_bwd_plan_bytes``) and returns a
+    :class:`BwdPlan`.  Raises ValueError for a shape the kernel cannot
+    take, before anything is allocated or launched."""
     if not 1 <= chunk <= 128 or S % chunk:
         raise ValueError(f"ssm_chunk_scan kernel needs 1 <= chunk <= 128 "
                          f"dividing S (S={S}, chunk={chunk}); pad through "
@@ -156,7 +321,8 @@ def plan(B: int, S: int, H: int, dk: int, dv: int, chunk: int) -> Plan:
         raise ValueError(f"ssm_chunk_scan kernel: dv={dv} needs more than "
                          f"{_GRID_Y_MAX} tiles of {tile_v}")
     ws = 4 * B * H * (S // chunk) * (cp * cp + 2 * cp)
-    return Plan(cp, tile_v, _scores_smem(cp), _scan_smem(cp, dk, tile_v), ws)
+    p = Plan(cp, tile_v, _scores_smem(cp), _scan_smem(cp, dk, tile_v), ws)
+    return _plan_bwd(p, B, S, H, dk, dv, chunk) if backward else p
 
 
 def _lib():
@@ -169,6 +335,12 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.ssm_scan_plan_bytes.argtypes = [ctypes.c_int] * 4
         lib.ssm_scan_plan_bytes.restype = ctypes.c_longlong
+        bwd = lib.ssm_chunk_scan_bwd_launch
+        bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
+        lib.ssm_scan_bwd_plan_bytes.argtypes = [ctypes.c_int] * 4
+        lib.ssm_scan_bwd_plan_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -227,7 +399,20 @@ def ssm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     initial_state=initial_state)
     if q.device.type != "cuda":
         raise ValueError(f"ssm_chunk_scan: unsupported device {q.device}")
-    refuse_grad("ssm_chunk_scan", q, k, v, log_decay, gate, initial_state)
+    p = _check(q, k, v, log_decay, gate, chunk, initial_state)
+    if wants_grad(q, k, v, log_decay, gate, initial_state):
+        if q.dtype != torch.float32:
+            raise TypeError(f"ssm_chunk_scan: the backward kernel takes "
+                            f"float32 q, k and v, which is what the model "
+                            f"path (models/ssm.chunked_linear_attention) "
+                            f"hands it; got {q.dtype} with grad")
+        return _SSMScan.apply(q, k, v, log_decay, gate, initial_state, chunk,
+                              p)
+    return _forward(p, q, k, v, log_decay, gate, chunk, initial_state)
+
+
+def _check(q, k, v, log_decay, gate, chunk, initial_state):
+    """The kernel's checks of one call's inputs; returns its plan."""
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -256,6 +441,13 @@ def ssm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"ssm_chunk_scan: {name} must be contiguous on "
                              f"{q.device}")
+    return p
+
+
+def _forward(p: Plan, q, k, v, log_decay, gate, chunk, initial_state):
+    """Both passes' launch into fresh outputs, counted."""
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
     y = torch.empty_like(v)
     state = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
     if B * H * S * dv == 0:
@@ -267,6 +459,106 @@ def ssm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(p, q, k, v, log_decay, gate, initial_state, y, state, chunk)
     ssm_chunk_scan.launches += 1
     return y, state
+
+
+class _SSMScan(torch.autograd.Function):
+    """K5's launch with :func:`ssm_chunk_scan_bwd` as its backward, which
+    recomputes the chunks' states rather than keep them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_decay, gate, initial_state, chunk, p):
+        y, state = _forward(p, q, k, v, log_decay, gate, chunk,
+                            initial_state)
+        ctx.save_for_backward(q, k, v, log_decay, gate, initial_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        q, k, v, log_decay, gate, initial_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(v)
+        grads = ssm_chunk_scan_bwd(
+            q, k, v, log_decay, gate, dy.contiguous(),
+            None if dstate is None else dstate.contiguous(),
+            chunk=ctx.chunk, initial_state=initial_state)
+        return tuple(gr if need else None for gr, need in
+                     zip(grads, ctx.needs_input_grad)) + (None, None)
+
+
+def ssm_chunk_scan_bwd(q, k, v, log_decay, gate, dy, dstate=None, *,
+                       chunk: int,
+                       initial_state: Optional[torch.Tensor] = None):
+    """The gradient of :func:`ssm_chunk_scan` (float32): dy, y's gradient
+    (B, S, H, dv); dstate, the final state's gradient (B, H, dk, dv) or
+    None (zero).  Returns (dq, dk, dv, d(log_decay), d(gate),
+    d(initial_state) or None), float32.  On a CPU tensor it runs
+    :func:`ssm_chunk_scan_bwd_plain`; on a CUDA tensor it launches the
+    backward kernel (``ssm_chunk_scan_bwd_launch``: the forward's passes
+    recompute the chunks' states, then the reverse walk and the sums of
+    the dv tiles' parts) or raises.  ``ssm_chunk_scan_bwd.launches``
+    counts calls that launched it."""
+    if q.device.type == "cpu":
+        return ssm_chunk_scan_bwd_plain(q, k, v, log_decay, gate, dy, dstate,
+                                        chunk=chunk,
+                                        initial_state=initial_state)
+    if q.device.type != "cuda":
+        raise ValueError(f"ssm_chunk_scan_bwd: unsupported device "
+                         f"{q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dy", dy),
+                    ("dstate", dstate)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"ssm_chunk_scan_bwd kernel takes float32, got "
+                            f"{name} {t.dtype}")
+    _check(q, k, v, log_decay, gate, chunk, initial_state)
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    if dy.shape != v.shape or dy.device != q.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"ssm_chunk_scan_bwd: dy must be contiguous of "
+                         f"shape {tuple(v.shape)} on {q.device}")
+    if dstate is not None and (dstate.shape != (B, H, dk, dv)
+                               or dstate.device != q.device
+                               or not dstate.is_contiguous()):
+        raise ValueError(f"ssm_chunk_scan_bwd: dstate must be contiguous of "
+                         f"shape {(B, H, dk, dv)} on {q.device}")
+    bp = plan(B, S, H, dk, dv, chunk, backward=True)
+    dq, dk_ = torch.empty_like(q), torch.empty_like(k)
+    dv_ = torch.empty_like(v)
+    da, dg = torch.empty_like(log_decay), torch.empty_like(gate)
+    dinit = None if initial_state is None else torch.empty_like(initial_state)
+    if B * H * S == 0:
+        for t in (dq, dk_, dv_, da, dg):
+            t.zero_()
+        if dinit is not None:
+            dinit.copy_(dstate if dstate is not None else 0.0)
+        return dq, dk_, dv_, da, dg, dinit
+    n = B * S * H
+    ws = torch.empty((bp.record_bytes + bp.states_bytes + bp.parts_bytes)
+                     // 4, dtype=torch.float32, device=q.device)
+    rec, states, parts = ws.split([bp.record_bytes // 4,
+                                   bp.states_bytes // 4,
+                                   bp.parts_bytes // 4])
+    dq_part, dk_part, da_part, dg_part = parts.split(
+        [bp.n_tiles * n * dk] * 2 + [bp.n_tiles * n] * 2)
+    vec = (int(dk % 4 == 0 and q.data_ptr() % 16 == 0
+               and k.data_ptr() % 16 == 0)
+           | 2 * int(dv % 4 == 0 and v.data_ptr() % 16 == 0))
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
+    rc = _lib().ssm_chunk_scan_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
+        gate.data_ptr(), ptr(initial_state), dy.data_ptr(), ptr(dstate),
+        dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), da.data_ptr(),
+        dg.data_ptr(), ptr(dinit), rec.data_ptr(), states.data_ptr(),
+        dq_part.data_ptr(), dk_part.data_ptr(), da_part.data_ptr(),
+        dg_part.data_ptr(), B, S, H, dk, dv, chunk, bp.fwd.tile_v,
+        bp.tile_b, vec, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssm_chunk_scan_bwd kernel launch failed: CUDA "
+                           f"error {rc}")
+    ssm_chunk_scan_bwd.launches += 1
+    return dq, dk_, dv_, da, dg, dinit
 
 
 def on_shards(scan, q, k, v, log_decay, gate, *, chunk: int,
@@ -287,3 +579,4 @@ def on_shards(scan, q, k, v, log_decay, gate, *, chunk: int,
 
 
 ssm_chunk_scan.launches = 0
+ssm_chunk_scan_bwd.launches = 0

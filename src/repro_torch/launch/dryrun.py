@@ -24,10 +24,17 @@ and ``collectives`` ({bytes,counts}_by_op, total_bytes, total_count, and
 the all-reduces by reduction, ``all_reduce_by_op``).  There is no
 ``memory.temp_size_in_bytes``: nothing here measures the step's
 temporaries, so the key is absent.  Eager code runs every layer, so the
-counts need no loop correction.  Training under a mesh is ROADMAP Queue A
-item 12c: a ``train`` pair records ``ok: false`` naming it.
+counts need no loop correction.  A ``train`` pair runs the reference's
+train step (``make_train_step``): float32 masters, params and AdamW m and
+v under the train-mode rules (FSDP over ``"data"``), the step replicated,
+``grad_accum`` by parameter count, the gradients placed like the params;
+forward, backward and the AdamW update, with grad on.
 
 Nothing happens at import: no process group, no environment variable.
+
+A full-depth ``train_4k`` pair runs forward, remat and backward of every
+layer and microbatch op by op on fake tensors (granite-8b: ~10 min);
+``--layers N`` cuts the depth for a quick check.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch granite-8b --shape decode_32k
@@ -38,10 +45,13 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import time
 import traceback
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -60,6 +70,7 @@ from ..models import decode_fn, init_params, param_axes, prefill_fn
 from ..models.layers import tree_leaves, tree_map
 from .mesh import (
     NamedSharding,
+    activation_spec,
     batch_axes_for,
     batch_shardings,
     cache_shardings,
@@ -69,7 +80,7 @@ from .mesh import (
 )
 
 __all__ = ["RESULTS_DIR", "collective_bytes", "build_lowered", "run_pair",
-           "main"]
+           "grad_accum_for", "main"]
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "build", "dryrun")
@@ -100,7 +111,10 @@ def _nbytes(tree) -> int:
 class _StepMeter(TorchDispatchMode):
     """Counts what this rank runs: every local op's FLOPs and every
     collective's output bytes.  A DTensor op passes through
-    (NotImplemented), so its local ops and collectives come back here."""
+    (NotImplemented), so its local ops and collectives come back here.
+    The ops DTensor's sharding propagation runs on fake tensors of the
+    global shape, to learn an output's metadata, are not this rank's work
+    and are not counted (see :meth:`counting`)."""
 
     def __init__(self):
         super().__init__()
@@ -108,12 +122,39 @@ class _StepMeter(TorchDispatchMode):
         self._formulas = FlopCounterMode(display=False).flop_registry
         self.flops = 0
         self.coll: list[tuple[str, int, str]] = []   # (op, bytes, reduce)
+        self._paused = 0
+
+    @contextlib.contextmanager
+    def counting(self):
+        """This meter on, with DTensor's metadata propagation passed by."""
+        from torch.distributed.tensor._sharding_prop import (
+            ShardingPropagator,
+        )
+        name = "_propagate_tensor_meta_non_cached"
+        inner = getattr(ShardingPropagator, name, None)
+
+        def paused(prop, *a, **kw):
+            self._paused += 1
+            try:
+                return inner(prop, *a, **kw)
+            finally:
+                self._paused -= 1
+        if inner is not None:
+            setattr(ShardingPropagator, name, paused)
+        try:
+            with self:
+                yield self
+        finally:
+            if inner is not None:
+                setattr(ShardingPropagator, name, inner)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **kwargs)
+        if self._paused:
+            return out
         packet = getattr(func, "_overloadpacket", None)
         if packet is None:                 # a higher-order op
             return out
@@ -159,20 +200,22 @@ def _placed(meta_tree, shardings):
     return tree_map(one, meta_tree, shardings)
 
 
-def build_lowered(arch: str, shape_name: str, mesh, decode_opt: bool = False):
+def build_lowered(arch: str, shape_name: str, mesh, decode_opt: bool = False,
+                  layers: Optional[int] = None):
     """The step of one (arch, shape) on ``mesh``, its inputs placed: returns
     (step, args, cfg), ``step(*args)`` running it.  Call under
     ``FakeTensorMode`` (the inputs are fake shards).
 
     ``decode_opt``: length-sharded KV cache + heads-first weights +
     distributed flash-decode (the reference's perf-optimized serve
-    step)."""
+    step).  ``layers``: the depth cut to that many layers (a quick check of
+    a pair; every width stays), else the config's own."""
     shape = get_shape(shape_name)
     cfg = config_for_shape(get_config(arch), shape)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     if shape.kind == "train":
-        raise NotImplementedError(
-            "training under a mesh is not ported yet (ROADMAP Queue A item "
-            "12c)")
+        return _train_step(cfg, shape, mesh)
     B = shape.global_batch
     baxes = batch_axes_for(mesh, B)
     specs = input_specs(cfg, shape)
@@ -211,11 +254,46 @@ def build_lowered(arch: str, shape_name: str, mesh, decode_opt: bool = False):
     return serve_step, (params, cache, tokens), cfg
 
 
+def grad_accum_for(cfg) -> int:
+    """The reference's microbatching by parameter count: 4 above 4e9
+    parameters, 2 above 1e9, else 1."""
+    npar = cfg.n_params()
+    return 4 if npar > 4e9 else (2 if npar > 1e9 else 1)
+
+
+def _train_step(cfg, shape, mesh):
+    """The reference's ``train_4k`` step (``repro/launch/dryrun.py``):
+    float32 masters, params and m, v by ``param_shardings(mode="train")``,
+    the step replicated, the batch by ``batch_shardings``, the residual by
+    ``activation_spec``, the gradients by the params' shardings."""
+    from ..training import AdamWConfig, OptState, make_train_step
+    tcfg = dataclasses.replace(cfg, dtype="float32")
+    B = shape.global_batch
+    specs = input_specs(tcfg, shape)
+    pshard = param_shardings(param_axes(tcfg), tcfg, mesh, mode="train")
+    pmeta = init_params(tcfg, device="meta")
+    m_meta = tree_map(lambda t: torch.empty_like(t, dtype=torch.float32),
+                      pmeta)
+    opt = OptState(
+        step=_placed(torch.empty((), dtype=torch.int32, device="meta"),
+                     NamedSharding(mesh, ())),
+        m=_placed(m_meta, pshard), v=_placed(m_meta, pshard))
+    step = make_train_step(
+        tcfg, AdamWConfig(), mesh=mesh, batch_axes=batch_axes_for(mesh, B),
+        act_spec=activation_spec(tcfg, mesh, B),
+        grad_accum=grad_accum_for(cfg), grad_shardings=pshard, donate=True)
+    args = (_placed(pmeta, pshard), opt,
+            _placed(specs, batch_shardings(specs, mesh, B)))
+    return step, args, cfg
+
+
 def run_pair(arch: str, shape_name: str, mesh_kind: str,
              out_dir: str = RESULTS_DIR, verbose: bool = True,
-             tag: str = "", decode_opt: bool = False) -> dict:
+             tag: str = "", decode_opt: bool = False,
+             layers: Optional[int] = None) -> dict:
     """One pair on a fake group of 256 or 512 ranks (destroyed at the end);
-    writes and returns its record."""
+    writes and returns its record.  ``layers`` cuts the depth (see
+    :func:`build_lowered`); the record then says so (``layers``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -224,6 +302,8 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str,
     n_chips = 512 if multi else 256
     rec: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
                  "chips": n_chips, "ok": False}
+    if layers is not None:
+        rec["layers"] = layers
     t0 = time.time()
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=n_chips)
@@ -231,10 +311,13 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str,
         mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
         with FakeTensorMode(allow_non_fake_inputs=True):
             step, args, cfg = build_lowered(arch, shape_name, mesh,
-                                            decode_opt=decode_opt)
+                                            decode_opt=decode_opt,
+                                            layers=layers)
             rec["memory"] = {"argument_size_in_bytes": _nbytes(args)}
             meter = _StepMeter()
-            with torch.no_grad(), CommDebugMode() as comm, meter:
+            grad = torch.enable_grad() if get_shape(shape_name).kind \
+                == "train" else torch.no_grad()
+            with grad, CommDebugMode() as comm, meter.counting():
                 out = step(*args)
             rec["memory"]["output_size_in_bytes"] = _nbytes(out)
         rec["cost"] = {"flops": float(meter.flops)}
@@ -272,6 +355,8 @@ def main() -> None:
     ap.add_argument("--out", default=RESULTS_DIR)
     ap.add_argument("--tag", default="")
     ap.add_argument("--decode-opt", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut every pair's depth to this many layers")
     args = ap.parse_args()
 
     archs = list_archs() if args.arch == "all" else args.arch.split(",")
@@ -283,7 +368,8 @@ def main() -> None:
         for shape in shapes:
             for mk in meshes:
                 rec = run_pair(arch, shape, mk, out_dir=args.out,
-                               tag=args.tag, decode_opt=args.decode_opt)
+                               tag=args.tag, decode_opt=args.decode_opt,
+                               layers=args.layers)
                 n_fail += 0 if rec["ok"] else 1
     print(f"[dryrun] done, {n_fail} failures")
     raise SystemExit(1 if n_fail else 0)

@@ -3,14 +3,15 @@
 [--layers 8] [--batch 2] [--seq 4096] [--profile-steps 2]``.
 
 Builds the train path of ``chip_smoke.py``: the full-width configuration
-with its depth cut to ``--layers`` (0 keeps it whole), float32 master
+with its depth cut to ``--layers`` (0 keeps it whole: ``--arch
+zamba2-1.2b --layers 0`` is the hybrid train path), float32 master
 weights from the port's seeded init, bfloat16 compute, remat a layer,
 AdamW; runs one step to warm up, then records ``--profile-steps`` steps
 of ``make_train_step`` with ``torch.profiler`` and prints: the steps'
 wall time (host clock, each step ends in a device sync), the device's
 busy time (the sum of kernel times), the idle share, the device kernels
-a step, the RMS-norm kernel's (K2's) and its backward's launches and
-time, the shares of the GEMMs and of PyTorch's elementwise and reduction
+a step, the RMS-norm kernel's (K2's) and the chunked scan's (K5's) and
+their backwards' launches and time, the shares of the GEMMs and of PyTorch's elementwise and reduction
 kernels, and the kernels that take the most device time.
 ``--chrome-trace PATH`` writes the Chrome trace.  It needs a card.
 """
@@ -88,6 +89,12 @@ def main(argv=None) -> None:
         "K2 forward (rms_norm)": lambda k: "rms_norm" in k
         and "bwd" not in k,
         "K2 backward (rms_norm_bwd)": lambda k: "rms_norm_bwd" in k,
+        # K5's backward call recomputes with the forward's scores pass
+        # (counted as forward) and its scan in record mode (``true>``)
+        "K5 forward (ssm_chunk_scan)": lambda k: "ssm_s" in k
+        and "true>" not in k,
+        "K5 backward (ssm_chunk_scan_bwd)": lambda k: "ssm_bwd" in k
+        or ("ssm_s" in k and "true>" in k),
         "GEMMs": lambda k: any(g in k.lower() for g in _GEMM),
         "elementwise": lambda k: "elementwise" in k,
         "reductions": lambda k: "reduce" in k.lower(),

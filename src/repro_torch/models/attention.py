@@ -267,7 +267,14 @@ def blocked_causal_attention(q, k, v, *, q_offset: int = 0,
     the causal frontier; at most 16 of them (longer sequences take wider
     chunks).  Peak score tile: (B, Hkv, G, q_chunk, kv_chunk).
     q_offset: absolute position of q[0]; lengths: (B,) valid kv lengths.
-    Returns (B, Sq, Hq, hd) in q's dtype."""
+    Returns (B, Sq, Hq, hd) in q's dtype.  On DTensors it runs on each
+    rank's shards (:func:`_attend_on_shards`), the Function's gradients
+    coming back with the inputs' placements."""
+    if is_dtensor(q):
+        return _attend_on_shards(blocked_causal_attention, q, k, v, lengths,
+                                 q_offset=q_offset,
+                                 sliding_window=sliding_window,
+                                 kv_chunk=kv_chunk, q_chunk=q_chunk)
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     kv_chunk = min(kv_chunk, skv)

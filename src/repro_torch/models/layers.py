@@ -201,8 +201,12 @@ def linear(x, w, b=None):
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
+    fsdp = _fsdp_cut(w)
+    w = gather_fsdp(w)
     if w.dim() > 2 and sharded_dims(w, range(1, w.dim())):
         return _linear_sharded(x, w, b)
+    if w.dim() > 2 and fsdp:
+        return _linear_whole(x, w, b)
     out = x @ w.reshape(w.shape[0], -1)
     out = out.reshape(x.shape[:-1] + w.shape[1:])
     if b is not None:
@@ -218,6 +222,46 @@ def sharded_dims(t, dims) -> list:
         return []
     cut = {p.dim % t.dim() for p in t.placements if isinstance(p, Shard)}
     return [d for d in dims if d in cut]
+
+
+_FSDP_AXES = ("pod", "data")
+
+
+def _fsdp_cut(w) -> bool:
+    """Whether a DTensor weight is cut over a batch mesh axis: train
+    mode's FSDP cut of its d (``"embed"``) dim."""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(w, DTensor) and any(
+        isinstance(p, Shard) and name in _FSDP_AXES
+        for p, name in zip(w.placements, w.device_mesh.mesh_dim_names))
+
+
+def gather_fsdp(w):
+    """A DTensor weight with its FSDP cut gathered whole, as FSDP gathers
+    a weight before its use (its gradient comes back reduce-scattered);
+    any other weight as it is.  Left cut, DTensor's product with
+    batch-sharded activations may gather the batch instead, and every rank
+    would multiply every row."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not _fsdp_cut(w):
+        return w
+    return w.redistribute(w.device_mesh, tuple(
+        Replicate() if isinstance(p, Shard) and name in _FSDP_AXES else p
+        for p, name in zip(w.placements, w.device_mesh.mesh_dim_names)))
+
+
+def _linear_whole(x, w, b=None):
+    """:func:`linear` for a gathered FSDP weight of more than two dims that
+    nothing else cuts (granite-8b's 8 KV heads over a model axis of 16):
+    each rank multiplies its rows of x by the whole weight.  DTensor's own
+    product would cut the flattened output dim into pieces no view splits
+    back into heads."""
+    from ..kernels.sharded import as_dtensor, kept, on_shards, replicated
+    mesh = w.device_mesh
+    x = as_dtensor(x, mesh)
+    xp = kept(x, {i: i for i in range(x.dim() - 1)})
+    out = on_shards(linear, (x, w), (xp, replicated(mesh)), xp, mesh)
+    return out if b is None else out + b
 
 
 def _linear_sharded(x, w, b=None):
@@ -257,12 +301,71 @@ def gelu_mlp(x, w_in, b_in, w_out, b_out):
 # loss
 # --------------------------------------------------------------------------
 
-def cross_entropy_loss(logits, targets, mask=None):
-    """Mean next-token cross entropy in fp32; mask: (B, S) float weights."""
+def token_nll(logits, targets):
+    """Each position's ``logsumexp(logits) - logits[target]`` in fp32.  On
+    DTensor logits whose vocab is sharded (the LM head's vocab cut over
+    the model axis) every rank works on its vocab slice: its max, reduced
+    over the ranks, then its sum of exponentials and the gold logit where
+    the target falls in its slice, each a pending sum reduced over the
+    ranks, as the reference's sharded logits reduce."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(logits, DTensor):
+        return _token_nll_sharded(logits, targets)
+    return _token_nll(logits, targets)
+
+
+def _token_nll(logits, targets):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def _token_nll_sharded(logits, targets):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..kernels.sharded import as_dtensor, on_shards
+    mesh = logits.device_mesh
+    nd = logits.dim()
+    vdim = nd - 1
+    lp = tuple(p if isinstance(p, Shard) else Replicate()
+               for p in logits.placements)
+    rows = tuple(p if isinstance(p, Shard) and p.dim % nd != vdim
+                 else Replicate() for p in lp)        # (..., ) per position
+    targets = as_dtensor(targets, mesh)
+    if lp == rows:         # the vocab whole on every rank: the plain loss
+        return on_shards(_token_nll, (logits, targets), (lp, rows), rows,
+                         mesh)
+
+    def reduced(op):
+        return tuple(Partial(op) if isinstance(p, Shard)
+                     and p.dim % nd == vdim else r
+                     for p, r in zip(lp, rows))
+    with torch.no_grad():
+        m = on_shards(lambda lg: lg.float().amax(dim=-1), (logits,), (lp,),
+                      reduced("max"), mesh).redistribute(mesh, rows)
+
+    def local(lg, ml, tl):
+        lg = lg.float()
+        v0 = 0
+        for i, p in enumerate(lp):
+            if isinstance(p, Shard) and p.dim % nd == vdim:
+                v0 = v0 * mesh.size(i) + mesh.get_local_rank(i)
+        v0 *= lg.shape[-1]
+        se = torch.exp(lg - ml[..., None]).sum(dim=-1)
+        t = tl.long() - v0
+        inside = (t >= 0) & (t < lg.shape[-1])
+        gold = torch.gather(lg, -1, t.clamp(0, lg.shape[-1] - 1)[..., None])
+        return se, torch.where(inside, gold[..., 0], torch.zeros_like(se))
+    se, gold = on_shards(local, (logits, m, targets), (lp, rows, rows),
+                         (reduced("sum"), reduced("sum")), mesh)
+    se, gold = se.redistribute(mesh, rows), gold.redistribute(mesh, rows)
+    return m + torch.log(se) - gold
+
+
+def cross_entropy_loss(logits, targets, mask=None):
+    """Mean next-token cross entropy in fp32; mask: (B, S) float weights."""
+    nll = token_nll(logits, targets)
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -162,7 +162,7 @@ def moe_ffn(x, params, *, n_experts: int, k: int, mesh=None,
 def _moe_ffn_sharded(x, params, *, n_experts: int, k: int, mesh, batch_axes,
                      capacity_factor: float, min_capacity: int,
                      model_axis: str, aux_loss: bool):
-    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial
 
     from ..kernels.sharded import as_dtensor, is_dtensor, on_shards
     from ..kernels.sharded import replicated
@@ -182,7 +182,6 @@ def _moe_ffn_sharded(x, params, *, n_experts: int, k: int, mesh, batch_axes,
         dsize *= shape[a]
     T_loc = max(B // max(dsize, 1), 1) * S
     capacity = _capacity(T_loc, k, n_experts, capacity_factor, min_capacity)
-    group = mesh.get_group(model_axis)
 
     def pl(*spec):
         return NamedSharding(mesh, spec).placements
@@ -204,15 +203,20 @@ def _moe_ffn_sharded(x, params, *, n_experts: int, k: int, mesh, batch_axes,
         out = _dispatch(xl.reshape(-1, d), il.reshape(-1, k),
                         gl.reshape(-1, k), w1, w3, w2, capacity=capacity,
                         e0=e0)
-        out = funcol.all_reduce(out, "sum", group)
         return out.reshape(Bl, S, d).to(xl.dtype)
 
     if ep_mode:                          # experts sharded
         w13 = w2p = pl(model_axis, None, None)
     else:                                # hidden dim sharded (TP)
         w13, w2p = pl(None, None, model_axis), pl(None, model_axis, None)
+    # each model rank's output is its experts' (or hidden slice's) part of
+    # the sum: a pending sum, reduced over the model axis (the reference's
+    # psum), which autograd differentiates as DTensor's redistribution
+    mdim = mesh.mesh_dim_names.index(model_axis)
+    part = tuple(Partial() if i == mdim else p for i, p in enumerate(bp))
     out = on_shards(local, (x, top_idx, top_w, w["w1"], w["w3"], w["w2"]),
-                    (bp, bp, bp, w13, w13, w2p), bp, mesh)
+                    (bp, bp, bp, w13, w13, w2p), part, mesh)
+    out = out.redistribute(mesh, bp)
     if plain:
         out = out.full_tensor()
         aux = None if aux is None else aux.full_tensor()

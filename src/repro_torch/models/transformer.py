@@ -67,8 +67,10 @@ from .layers import (
     make_rope,
     norm_init,
     rms_norm,
+    gather_fsdp,
     sharded_dims,
     swiglu,
+    token_nll,
 )
 from .moe import moe_ffn
 
@@ -698,6 +700,7 @@ def _mlstm_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
                    lengths):
     """mLSTM block: the gated linear-attention core with the normalizer
     column.  ``cache`` (conv, state) is written in place."""
+    from ..kernels.sharded import is_dtensor, kept
     di, H = cfg.d_inner, cfg.n_ssm_heads
     hd = di // H
     sp = p["ssm"]
@@ -726,8 +729,14 @@ def _mlstm_forward(cfg: ModelConfig, p, x, r, *, mode: str, cache,
         k = linear(xc, sp["wk"]).reshape(Bt, S, H, hd).float() \
             / math.sqrt(hd)
         v = linear(xc, sp["wv"]).reshape(Bt, S, H, hd)
-        i_pre, f_pre = torch.chunk(linear(xc, sp["w_gates"]).float(), 2,
-                                   dim=-1)                     # (B, S, H)
+        gates = linear(xc, sp["w_gates"]).float()
+        if is_dtensor(gates):
+            # the (B, S, 2H) gates whole on every model rank (their pending
+            # sum reduced here): left to DTensor, their gradient may come
+            # back with S cut, which the weight's gradient cannot flatten
+            gates = gates.redistribute(gates.device_mesh,
+                                       kept(gates, {0: 0}))
+        i_pre, f_pre = torch.chunk(gates, 2, dim=-1)          # (B, S, H)
         log_f = _logsigmoid(f_pre)
         i_g = torch.sigmoid(i_pre)
         if lengths is not None:
@@ -863,15 +872,19 @@ def _last(x, lens, S):
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
-def _encode_audio(cfg: ModelConfig, params, frames, remat: bool = False):
+def _encode_audio(cfg: ModelConfig, params, frames, remat: bool = False,
+                  act_spec=None):
     """Whisper-style encoder over precomputed frame embeddings (the stub
     front end): frames (B, S_enc, d) -> (B, S_enc, d).  Each layer: norm1,
     bidirectional :func:`attention.cross_attention` over every position,
     the residual, norm2, the FFN, the residual; then ``enc_norm``.  The
     learned ``enc_pos`` is the only position signal: the reference builds
     rope tables here and applies none.  ``remat``: each layer under
-    ``torch.utils.checkpoint`` (training)."""
-    x = frames.to(params["enc_pos"].dtype) + params["enc_pos"][None]
+    ``torch.utils.checkpoint`` (training).  ``act_spec``: the residual's
+    sharding after the position add and every layer (training under a
+    mesh; left free, DTensor cuts S_enc over the model axis unevenly)."""
+    pos = gather_fsdp(params["enc_pos"])
+    x = _constrain(frames.to(pos.dtype) + pos[None], act_spec)
 
     def layer(p, x, r):
         x, h = add_rms_norm(x, r, p["norm1"], cfg.norm_eps)
@@ -886,6 +899,7 @@ def _encode_audio(cfg: ModelConfig, params, frames, remat: bool = False):
         p = _slice(params["enc_blocks"], i)
         x, r = checkpoint(layer, p, x, r, use_reentrant=False) if remat \
             else layer(p, x, r)
+        x = _constrain(x, act_spec)
     return add_rms_norm(x, r, params["enc_norm"], cfg.norm_eps)[1]
 
 
@@ -938,11 +952,9 @@ def _chunked_lm_loss(cfg: ModelConfig, params, x, r, targets, mask, *,
                                   mask)
 
     def body(xs, rs, ts, ms):
-        logits = _lm_logits(cfg, params, xs, rs).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ts.long()[..., None])[..., 0]
+        nll = token_nll(_lm_logits(cfg, params, xs, rs), ts)
         msf = ms.float()
-        return ((logz - gold) * msf).sum(), msf.sum()
+        return (nll * msf).sum(), msf.sum()
 
     nll = x.new_zeros((), dtype=torch.float32)
     m = x.new_zeros((), dtype=torch.float32)
@@ -966,30 +978,42 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None,
     load-balance loss.  batch: tokens (B, S), targets (B, S), mask (B, S)
     (optional), plus ``patches`` (vlm) or ``frames`` (audio; and
     ``enc_lengths``, optional).  ``remat``: each block (and each audio
-    encoder layer) under ``torch.utils.checkpoint``.  Training runs on one
-    card: ``mesh`` and ``act_spec`` must be None (training under a mesh is
-    ROADMAP Queue A item 12c), and ``batch_axes`` only names a mesh's
-    axes."""
-    if mesh is not None or act_spec is not None:
-        raise NotImplementedError(
-            "loss_fn: training under a mesh is not ported yet (ROADMAP "
-            "Queue A item 12c; item 12b ported the mesh for serving); pass "
-            "mesh=None, act_spec=None")
+    encoder layer) under ``torch.utils.checkpoint``.
+
+    ``mesh``: params and batch are DTensors (placed by
+    :mod:`repro_torch.launch.mesh`, FSDP's train-mode rules included); the
+    MoE FFN runs over ``batch_axes`` and the model axis, ``act_spec`` (a
+    ``NamedSharding``) constrains the residual stream after the embedding
+    and every block, and the LM loss reduces its vocab-sharded logits over
+    the model axis.  The loss comes back replicated."""
+    with _mesh_scope(mesh):
+        loss = _loss(cfg, params, batch, mesh=mesh, batch_axes=batch_axes,
+                     act_spec=act_spec, remat=remat)
+    if mesh is not None:
+        from ..kernels.sharded import as_dtensor, replicated
+        loss = as_dtensor(loss, mesh).redistribute(mesh, replicated(mesh))
+    return loss
+
+
+def _loss(cfg: ModelConfig, params, batch, *, mesh, batch_axes, act_spec,
+          remat: bool):
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _prepare_inputs(cfg, params, batch)
     sin, cos = make_rope(torch.arange(S, device=tokens.device), cfg.hd,
                          cfg.rope_theta)
+    common = dict(sin=sin[None], cos=cos[None], lengths=None)
+    if mesh is not None:
+        common.update(mesh=mesh, batch_axes=batch_axes)
     cross_kv = enc_lengths = None
     if cfg.family == "audio":
-        enc = _encode_audio(cfg, params, batch["frames"], remat=remat)
+        enc = _encode_audio(cfg, params, batch["frames"], remat=remat,
+                            act_spec=act_spec)
         cross_kv = _cross_kv_from_encoder(cfg, params, enc)
         enc_lengths = batch.get("enc_lengths")
     x, r, aux = _run_stack(cfg, params, x, mode="train", cache=None,
-                           common=dict(sin=sin[None], cos=cos[None],
-                                       lengths=None),
-                           remat=remat, cross_kv=cross_kv,
-                           enc_lengths=enc_lengths)
+                           common=common, remat=remat, cross_kv=cross_kv,
+                           enc_lengths=enc_lengths, act_spec=act_spec)
     loss = _chunked_lm_loss(cfg, params, x, r, batch["targets"],
                             batch.get("mask"))
     return loss + cfg.router_aux_weight * aux
@@ -1009,10 +1033,25 @@ def _embed(params, tokens):
     vocab maybe sharded) the embedding op, which DTensor shards, its
     pending sum over the vocab shards reduced at once (a vocab shard's
     pending sum holds a mask that serves one reduction only)."""
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from ..kernels.sharded import is_dtensor
-    if is_dtensor(params["embed"]):
-        x = F.embedding(tokens.long(), params["embed"])
+    table = params["embed"]
+    if is_dtensor(table):
+        from ..kernels.sharded import as_dtensor, kept, on_shards
+        # train mode's FSDP cut of d is gathered first, as FSDP gathers a
+        # weight before its use: DTensor's embedding takes a vocab cut
+        # only
+        mesh = table.device_mesh
+        pl = tuple(p if p == Shard(0) else Replicate()
+                   for p in table.placements)
+        tokens = as_dtensor(tokens, mesh)
+        if pl == (Replicate(),) * mesh.ndim:
+            # the vocab whole: the plain lookup on each rank's rows
+            tp = kept(tokens, {0: 0, 1: 1})
+            return on_shards(lambda t, e: e[t.long()], (tokens, table),
+                             (tp, pl), tp, mesh)
+        table = table.redistribute(mesh, pl)
+        x = F.embedding(tokens.long(), table)
         return x.redistribute(x.device_mesh, tuple(
             Replicate() if isinstance(p, Partial) else p
             for p in x.placements))

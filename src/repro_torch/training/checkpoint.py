@@ -4,7 +4,10 @@ step) with a JSON sidecar, in the reference's format
 path of dict keys and sequence indices, so a checkpoint written by either
 package loads in the other.  numpy has no bfloat16, so a bfloat16 leaf is
 written as float32 (exact) and cast back on load, as every leaf is cast to
-the dtype of its place in ``like``."""
+the dtype of its place in ``like``.  A DTensor leaf (training under a
+mesh) is written whole (``full_tensor``) and a leaf whose place in
+``like`` is a DTensor is placed like it, so a checkpoint written under a
+mesh loads with none, and the reverse."""
 from __future__ import annotations
 
 import json
@@ -37,6 +40,9 @@ def _key(path) -> str:
 
 
 def _numpy(leaf) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -86,8 +92,19 @@ def load_checkpoint(ckpt_dir: str, like: PyTree, step: int | None = None
                                  f"{tuple(leaf.shape)}")
             t = torch.from_numpy(np.array(arr, dtype=np.float32)
                                  if arr.dtype.name == "bfloat16" else arr)
-            leaves[p] = t.to(device=leaf.device, dtype=leaf.dtype)
+            leaves[p] = _placed_like(t, leaf)
     return _rebuild(like, leaves), step
+
+
+def _placed_like(t: torch.Tensor, like):
+    """``t`` (whole) with the dtype, device and, for a DTensor ``like``,
+    the mesh and placements of ``like``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(like, DTensor):
+        t = t.to(device=like.to_local().device, dtype=like.dtype)
+        return distribute_tensor(t, like.device_mesh, like.placements,
+                                 src_data_rank=None)
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 def latest_step(ckpt_dir: str) -> int | None:

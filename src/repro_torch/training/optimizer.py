@@ -2,7 +2,9 @@
 float32: the reference's formula (``repro/training/optimizer.py``), not
 ``torch.optim.AdamW``, whose update and rounding differ.
 
-State mirrors the params: fp32 m and v trees and a step counter.  The
+State mirrors the params: fp32 m and v trees and a step counter.  Under
+a mesh (DTensor params) m and v are placed like the params and the step
+is replicated; each rank updates its own shards.  The
 update is functional by default, as the reference's; ``donate=True``
 writes the new params, m and v into the given tensors instead (the
 port's counterpart of donating buffers to a jitted step), which keeps a
@@ -46,12 +48,22 @@ class OptState(NamedTuple):
 
 
 def init_opt_state(params: PyTree) -> OptState:
-    """Zero m and v (float32, on each leaf's device) and step 0."""
+    """Zero m and v (float32, on each leaf's device; DTensors placed like
+    their params) and step 0 (replicated over the params' mesh)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    dev = tree_leaves(params)[0].device
-    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                    m=tree_map(zeros, params), v=tree_map(zeros, params))
+        return torch.zeros_like(p, dtype=torch.float32)
+    leaf = tree_leaves(params)[0]
+    if isinstance(leaf, DTensor):
+        mesh = leaf.device_mesh
+        step = DTensor.from_local(
+            torch.zeros((), dtype=torch.int32, device=leaf.to_local().device),
+            mesh, [Replicate()] * mesh.ndim, run_check=False)
+    else:
+        step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    return OptState(step=step, m=tree_map(zeros, params),
+                    v=tree_map(zeros, params))
 
 
 def cosine_schedule(cfg: AdamWConfig, step):
@@ -69,7 +81,9 @@ def cosine_schedule(cfg: AdamWConfig, step):
 
 def global_norm(tree: PyTree):
     """sqrt of the sum of squares of every leaf, in float32, the leaves
-    summed in the reference's (sorted-key) order."""
+    summed in the reference's (sorted-key) order.  On DTensors each leaf's
+    sum is a pending sum over its shards, reduced across the ranks before
+    the square root."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tree_leaves(tree)))
 

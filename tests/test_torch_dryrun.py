@@ -9,9 +9,10 @@ the bytes of the reference's ``NamedSharding(AbstractMesh, spec)
 mesh, no device).  The collectives are those the step runs: one sum
 all-reduce per MoE layer for qwen3-moe-30b-a3b's experts, and for
 granite-8b with ``--decode-opt`` one max and two sum all-reduces per
-layer (the length-sharded flash-decode).  A train pair records
-``ok: false`` naming ROADMAP item 12c, and no process group outlives a
-pair.
+layer (the length-sharded flash-decode).  granite-8b's ``train_4k``
+pair runs the FSDP train step (forward, backward and AdamW) at a cut
+depth, and its placed inputs at full depth hold the reference's bytes;
+no process group outlives a pair.
 """
 import json
 import os
@@ -138,12 +139,74 @@ def test_records_written_and_read_by_the_roofline(records):
         assert row["hlo_flops_per_device"] == recs[name]["cost"]["flops"]
 
 
+def _ref_train_argument_bytes(layers=None):
+    """The reference's ``train_4k`` step's inputs as its dry run shards
+    them on the (16, 16) mesh: rank 0's bytes of the float32 params, AdamW
+    m and v (like the params), the step (replicated) and the batch."""
+    import dataclasses
+    shape = jax_get_shape("train_4k")
+    cfg = jax_config_for_shape(jax_get_config("granite-8b"), shape)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    tcfg = dataclasses.replace(cfg, dtype="float32")
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    vals, axes = jax_split_params(jax.eval_shape(
+        lambda: jax_init_params(tcfg, jax.random.PRNGKey(0))))
+    pshard = rmesh.param_shardings(axes, tcfg, mesh, mode="train")
+    specs = jax_input_specs(tcfg, shape)
+    bshard = rmesh.batch_shardings(specs, mesh, shape.global_batch)
+
+    def nbytes(leaves, shardings):
+        tot = 0
+        for leaf, sh in zip(jax.tree.leaves(leaves), jax.tree.leaves(
+                shardings, is_leaf=lambda x: isinstance(x, NamedSharding))):
+            tot += int(np.prod(sh.shard_shape(leaf.shape))) \
+                * np.dtype(leaf.dtype).itemsize
+        return tot
+
+    return 3 * nbytes(vals, pshard) + 4 + nbytes(specs, bshard)
+
+
 def test_train_pair_names_item_12c(tmp_path):
+    """granite-8b's ``train_4k`` pair (formerly refused, naming ROADMAP
+    item 12c) runs the FSDP train step, depth cut to 2 layers (the full
+    depth takes ~10 minutes op by op; its record is in PERF.md): ok, rank
+    0's argument bytes the reference's to the byte for the same cut, the
+    weights gathered over the data axis and their gradients
+    reduce-scattered back, and no process group left."""
     rec = dryrun.run_pair("granite-8b", "train_4k", "single",
-                          out_dir=str(tmp_path), verbose=False)
-    assert rec["ok"] is False
-    assert "12c" in rec["error"]
+                          out_dir=str(tmp_path), verbose=False, layers=2)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["layers"] == 2
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        _ref_train_argument_bytes(layers=2)
+    assert rec["cost"]["flops"] > 0
+    coll = rec["collectives"]
+    assert coll["counts_by_op"]["all-gather"] > 0
+    assert coll["counts_by_op"]["reduce-scatter"] > 0
+    assert coll["total_count"] == rec["comm_debug_count"]
     assert not dist.is_initialized()
+    row = roofline.analyze_record(rec)
+    assert row["ok"] and row["chips"] == 256
+
+
+def test_train_argument_bytes_at_full_depth():
+    """The full-depth granite-8b ``train_4k`` step's placed inputs (fake
+    shards, no step run): rank 0's bytes the reference's to the byte."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
+    try:
+        mesh = dryrun.make_production_mesh(device_type="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            _, args, cfg = dryrun.build_lowered("granite-8b", "train_4k",
+                                                mesh)
+            got = dryrun._nbytes(args)
+    finally:
+        dist.destroy_process_group()
+    assert dryrun.grad_accum_for(cfg) == 4
+    assert got == _ref_train_argument_bytes()
 
 
 def test_import_starts_no_group_and_sets_no_environment():

@@ -71,6 +71,21 @@ DECODE_CASES = [(1, 2, 1, 32, 64, 32), (2, 4, 2, 64, 128, 64),
 SSM_CASES = [(1, 32, 1, 8, 8, 16), (2, 64, 3, 16, 8, 16),
              (2, 128, 2, 64, 64, 128), (1, 48, 4, 32, 33, 16)]
 SSM_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
+# (B, S, H, dk, dv, chunk, initial state, final-state gradient): the
+# backward kernel's cases, every padded chunk (16 to 128) and backward dv
+# tile (64, 32, 16), zamba2's and xlstm's widths (dv 513: 33 tiles of 16),
+# and chunks short of their padded size (40 in 64, 100 in 128: the chunk
+# ops takes for a sequence shorter than 128)
+SSM_BWD_CASES = [(1, 32, 1, 8, 8, 16, False, False),
+                 (2, 64, 3, 16, 8, 16, True, True),
+                 (1, 48, 4, 32, 33, 16, False, True),
+                 (2, 96, 2, 20, 40, 32, True, False),
+                 (2, 128, 3, 64, 64, 64, True, True),
+                 (2, 256, 32, 64, 128, 128, False, False),
+                 (1, 256, 4, 512, 513, 128, True, True),
+                 (2, 384, 2, 64, 128, 128, True, True),
+                 (2, 80, 3, 16, 24, 40, True, True),
+                 (1, 100, 2, 64, 128, 100, False, True)]
 # sliding window / rolling cases of the model function: (mode, window)
 MASKS = [("causal", 0), ("window", 24), ("rolling", 24)]
 # granite-34b's head layout (configs/granite_34b.py): 48 query heads over
@@ -850,13 +865,6 @@ class TestKernelsOnCard:
         with pytest.raises(RuntimeError, match="item 14"):
             ops.paged_decode_attention(qp, kp.requires_grad_(True), vp, bt,
                                        pl, block_size=8)
-        sq, sk, sv, la, gt = (torch.from_numpy(a).to(cuda) for a in
-                              _ssm_inputs(1, 32, 2, 8, 8))
-        with pytest.raises(RuntimeError, match="item 14"):
-            ops.ssm_chunk_scan(sq, sk, sv.requires_grad_(True), la, gt,
-                               chunk=16)
-        with torch.no_grad():
-            ops.ssm_chunk_scan(sq, sk, sv, la, gt, chunk=16)
         torch.cuda.synchronize()
 
     def test_add_rms_norm_rejects_mismatched_operands(self, cuda):
@@ -1159,6 +1167,73 @@ class TestKernelsOnCard:
                                           initial_state=s0)
         np.testing.assert_allclose(_t32(y), _t32(y0), atol=tol, rtol=tol)
         np.testing.assert_allclose(_t32(s), _t32(st0), atol=1e-3, rtol=1e-3)
+
+    @pytest.mark.parametrize("case", SSM_BWD_CASES)
+    def test_ssm_bwd_kernel(self, cuda, case):
+        """K5's backward kernel against its plain version, every gradient
+        within SSM_TOL's float32 1e-3 of its largest entry; a second call
+        repeats the first bit for bit (the tiles' parts are summed in a
+        fixed order)."""
+        B, S, H, dk, dv, chunk, init, dstate = case
+        args, s0 = self._ssm_on_card(cuda, (B, S, H, dk, dv, chunk), 21,
+                                     0.1 if init else None)
+        gen = torch.Generator(cuda).manual_seed(22)
+        dy = torch.randn((B, S, H, dv), device=cuda, generator=gen)
+        ds = (torch.randn((B, H, dk, dv), device=cuda, generator=gen)
+              if dstate else None)
+        before = ss.ssm_chunk_scan_bwd.launches
+        got = ss.ssm_chunk_scan_bwd(*args, dy, ds, chunk=chunk,
+                                    initial_state=s0)
+        again = ss.ssm_chunk_scan_bwd(*args, dy, ds, chunk=chunk,
+                                      initial_state=s0)
+        torch.cuda.synchronize()
+        assert ss.ssm_chunk_scan_bwd.launches == before + 2
+        want = ss.ssm_chunk_scan_bwd_plain(*args, dy, ds, chunk=chunk,
+                                           initial_state=s0)
+        assert (got[5] is None) == (not init)
+        for name, x, x2, w in zip(("dq", "dk", "dv", "da", "dg", "ds0"),
+                                  got, again, want):
+            if w is None:
+                continue
+            assert torch.equal(x, x2), name
+            err = float((x - w).abs().max() / w.abs().max())
+            assert err <= SSM_TOL["float32"], (name, err)
+
+    def test_ssm_grad_through_the_kernel(self, cuda):
+        """Autograd on the card through K5's Function, against autograd of
+        the plain version on the CPU, at the models' chunk of 128 over a
+        ragged S (ops pads it)."""
+        B, S, H, dk, dv = 2, 200, 3, 32, 48
+        xs = _ssm_inputs(B, S, H, dk, dv, seed=23)
+        grads = []
+        before = ss.ssm_chunk_scan_bwd.launches
+        for dev in ("cpu", cuda):
+            args = [torch.from_numpy(x).to(dev).requires_grad_(True)
+                    for x in xs]
+            y, st = ops.ssm_chunk_scan(*args, chunk=128)
+            (y.square().sum() + st.sum()).backward()
+            grads.append([a.grad.cpu() for a in args])
+        assert ss.ssm_chunk_scan_bwd.launches == before + 1
+        for g_cpu, g_card in zip(*grads):
+            err = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+            assert err <= SSM_TOL["float32"], err
+
+    def test_ssm_bf16_grad_refused(self, cuda):
+        sq, sk, sv, la, gt = (torch.from_numpy(a).to(cuda) for a in
+                              _ssm_inputs(1, 32, 2, 8, 8))
+        with pytest.raises(TypeError, match="float32"):
+            ss.ssm_chunk_scan(sq.bfloat16(), sk.bfloat16(),
+                              sv.bfloat16().requires_grad_(True), la, gt,
+                              chunk=16)
+
+    @pytest.mark.parametrize("case", SSM_BWD_CASES)
+    def test_ssm_bwd_plan_matches_kernel(self, cuda, case):
+        B, S, H, dk, dv, chunk = case[:6]
+        p = ss.plan(B, S, H, dk, dv, chunk, backward=True)
+        fn = ss._lib().ssm_scan_bwd_plan_bytes
+        assert fn(chunk, dk, p.tile_b, 0) == p.bwd_smem
+        assert 4 * fn(chunk, dk, p.tile_b, 1) * B * H * (S // chunk) \
+            == p.record_bytes
 
     def _ssm_on_card(self, cuda, case, seed, init_scale=None):
         B, S, H, dk, dv, chunk = case

@@ -241,11 +241,47 @@ class TestGradAccum:
         _assert_trees_close(p2, jp, 1e-5, "params")
 
     def test_mesh_arguments_raise(self):
+        """The mesh arguments (formerly refused, naming ROADMAP item 12c)
+        on the port's one-rank CPU mesh, params placed by the train-mode
+        rules and the batch by ``batch_shardings``: one step with and
+        without ``grad_accum`` equals ``mesh=None``'s bit for bit (the
+        same ops on the same local tensors), the loss replicated and m
+        and v placed like the params."""
+        from torch.distributed.tensor import Replicate
+
+        from repro_torch.launch import mesh as pm
+        from repro_torch.models import param_axes
         cfg = ModelConfig(**CFG)
-        for kw in ({"mesh": object()}, {"act_spec": object()},
-                   {"grad_shardings": object()}):
-            with pytest.raises(NotImplementedError, match="12b"):
-                make_train_step(cfg, AdamWConfig(), **kw)
+        _, params = _bridged(JaxModelConfig(**CFG))
+        batch = {k: torch.from_numpy(v) for k, v in next(token_batches(
+            vocab_size=64, batch=4, seq_len=16, n_batches=1,
+            seed=0)).items()}
+        started = not torch.distributed.is_initialized()
+        mesh = pm.make_cpu_mesh()
+        try:
+            sh = pm.param_shardings(param_axes(cfg), cfg, mesh,
+                                    mode="train")
+            for accum in (1, 2):
+                ocfg = AdamWConfig(warmup_steps=0)
+                l0, p0, o0 = make_train_step(cfg, ocfg, grad_accum=accum)(
+                    params, init_opt_state(params), batch)
+                dp = pm.distribute_tree(params, sh)
+                step = make_train_step(
+                    cfg, ocfg, mesh=mesh, grad_accum=accum,
+                    act_spec=pm.activation_spec(cfg, mesh, 4),
+                    grad_shardings=sh)
+                l1, p1, o1 = step(dp, init_opt_state(dp), pm.distribute_tree(
+                    batch, pm.batch_shardings(batch, mesh, 4)))
+                assert tuple(l1.placements) == (Replicate(), Replicate())
+                assert torch.equal(l0, l1.full_tensor())
+                for a, b in zip(tree_leaves((p0, o0.m, o0.v)),
+                                tree_leaves((p1, o1.m, o1.v))):
+                    assert torch.equal(a, b.full_tensor())
+                for p, m in zip(tree_leaves(p1), tree_leaves(o1.m)):
+                    assert p.placements == m.placements
+        finally:
+            if started:
+                torch.distributed.destroy_process_group()
 
 
 class TestCheckpoint:
@@ -382,6 +418,11 @@ def test_launcher_smoke_cpu(capsys):
 
 
 def test_launcher_refuses_multi_pod():
-    with pytest.raises(NotImplementedError, match="12b"):
+    """``--multi-pod`` asks for the reference's 2 x 16 x 16 production mesh
+    (formerly refused, naming ROADMAP item 12c): on one rank it raises,
+    naming the world size it needs, never falling back to one rank, and
+    leaves no process group behind."""
+    with pytest.raises(RuntimeError, match="512 ranks"):
         launch_train.main(["--arch", "granite-8b", "--smoke", "--device",
                            "cpu", "--multi-pod"])
+    assert not torch.distributed.is_initialized()
