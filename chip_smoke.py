@@ -186,8 +186,8 @@ result line):
    card under its (1, 1) mesh, as a subprocess.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs one or more of ``mesh``,
-``ssm_bwd``, ``cross_train_ssm``, ``train_zamba2`` and ``mesh_train``
-alone after the build (no result line).
+``ssm``, ``ssm_bwd``, ``cross_train_ssm``, ``train_zamba2`` and
+``mesh_train`` alone after the build (no result line).
 
 The second-to-last line is ``{"kernels": [...]}`` (each kernel's launches
 by path under ``launches_by_path``: engine, moe, vlm, fleet, the four
@@ -1163,7 +1163,21 @@ def _ssm_bwd_case(dev, flush, B, S, H, dk, dv, chunk, *, seed,
               f"against autograd {auto_errs[name]:.3e} of its largest "
               f"entry")
     ms = time_ms(fn, reps=reps, flush=flush)
-    plain_ms = time_ms(plain, reps=max(reps // 4, 3), flush=flush)
+    # the plain version's float32 GEMMs vary from call to call: at least
+    # 10 repetitions
+    plain_ms = time_ms(plain, reps=max(reps // 2, 10), flush=flush)
+    # each pass alone, on the workspace of one full call
+    passes = {name: time_ms(launch, reps=reps, flush=flush)
+              for name, launch in ss.bwd_passes(*args, chunk=chunk,
+                                                initial_state=s0)}
+    # the device kernels of one call, as the profiler sees them (and the
+    # add before it)
+    bp = ss.plan(B, Sp, H, dk, dv, chunk, backward=True)
+    names = device_kernels(fn)
+    kernels = [n for n in names if "ssm_bwd" in n]
+    check(len(kernels) == bp.launches and len(names) - len(kernels) <= 1,
+          f"ssm_chunk_scan_bwd: a call ran {len(kernels)} of its device "
+          f"kernels ({', '.join(names)}), its plan says {bp.launches}")
     # bytes: q, k, v, a, g, dy (and the initial state and the final
     # state's gradient) read once, every gradient written once.
     # operations (two flops a multiply-add), per (b, h) and chunk of C
@@ -1182,11 +1196,12 @@ def _ssm_bwd_case(dev, flush, B, S, H, dk, dv, chunk, *, seed,
                   + (2 if init else 0) * B * H * dk * dv
                   + (B * H * dk * dv if dstate else 0))
     b_ms, b_by = bound(nbytes, 2.0 * fma)
-    bp = ss.plan(B, Sp, H, dk, dv, chunk, backward=True)
     return dict(max_abs_err=max(abs_errs.values()), rel_err=errs,
                 autograd_rel_err=max(auto_errs.values()), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                bound_share=b_ms / ms, library_ms=None, tile_b=bp.tile_b,
+                bound_share=b_ms / ms, library_ms=None, passes_ms=passes,
+                launches_a_call=len(kernels),
+                tiles=f"{bp.dk_tiles} dk x {bp.dv_tiles} dv",
                 workspace_mb=(bp.record_bytes + bp.states_bytes
                               + bp.parts_bytes) / 1e6,
                 shape=f"B={B} S={S}" + (f" (padded to {Sp})" if pad else "")
@@ -1195,9 +1210,32 @@ def _ssm_bwd_case(dev, flush, B, S, H, dk, dv, chunk, *, seed,
                       + (", final-state gradient" if dstate else ""))
 
 
+def device_kernels(fn) -> list:
+    """The names of the device kernels one call of ``fn`` runs, from the
+    profiler (a trace that saw no device activity is taken again).  A
+    trace can miss its first device kernel, so a one-element add runs
+    first: the caller picks its own kernels out by name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    one = torch.zeros(1, device="cuda")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one.add_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
 _SSM_BWD_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                  "bound_share", "library_ms", "max_abs_err", "rel_err",
-                 "autograd_rel_err", "tile_b", "workspace_mb")
+                 "autograd_rel_err", "passes_ms", "launches_a_call", "tiles",
+                 "workspace_mb")
 
 
 def phase_ssm_scan_bwd(dev, flush):
@@ -1216,11 +1254,15 @@ def phase_ssm_scan_bwd(dev, flush):
     ]
     for c in cases:
         errs = ", ".join(f"{k} {v:.2e}" for k, v in c["rel_err"].items())
+        split = ", ".join(f"{k} {v * 1e3:.2f}"
+                          for k, v in c["passes_ms"].items())
         print(f"kernel ssm_chunk_scan_bwd [{c['shape']}]: "
               f"{c['ms'] * 1e3:.2f} us (bound {c['bound_ms'] * 1e3:.2f} us "
-              f"by {c['bound_by']}, {100 * c['bound_share']:.1f}% of it; dv "
-              f"tile {c['tile_b']}, workspace {c['workspace_mb']:.1f} MB), "
-              f"plain {c['plain_ms'] * 1e3:.2f} us (kernel / plain "
+              f"by {c['bound_by']}, {100 * c['bound_share']:.1f}% of it; "
+              f"{c['launches_a_call']} launches a call; passes alone, us: "
+              f"{split}; tiles {c['tiles']}, workspace "
+              f"{c['workspace_mb']:.1f} MB), plain "
+              f"{c['plain_ms'] * 1e3:.2f} us (kernel / plain "
               f"{c['ms'] / c['plain_ms']:.2f}x), library none; each "
               f"gradient against the plain version, of its largest entry: "
               f"{errs}; kernel and plain against autograd of the plain "
@@ -2697,13 +2739,15 @@ def main() -> None:
           f"{len(build.SOURCES)} sources (nvcc, sm_90a)")
     for src, log in build.BUILD_INFO["ptxas"].items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry" in line:
                 print(f"ptxas {src}: {line.strip()}")
 
     if sys.argv[1:2] == ["--phase"]:
         # one phase alone, for a quick check (not the smoke run: no result
         # line)
         quick = {"mesh": lambda: phase_mesh_path(dev, card),
+                 "ssm": lambda: phase_ssm_scan(dev, torch.empty(
+                     64 * 1024 * 1024, dtype=torch.int32, device=dev)),
                  "ssm_bwd": lambda: phase_ssm_scan_bwd(dev, torch.empty(
                      64 * 1024 * 1024, dtype=torch.int32, device=dev)),
                  "cross_train_ssm": lambda: phase_cross_device_train_ssm(

@@ -121,10 +121,6 @@ __host__ __device__ constexpr int round_up(int x, int m) {
 __host__ __device__ constexpr int64_t record_floats(int cp) {
   return (int64_t)cp * cp + 2 * cp;
 }
-// the backward's record: Z [CP][CP], eA [CP], ec [CP], A [CP]
-__host__ __device__ constexpr int64_t bwd_record_floats(int cp) {
-  return (int64_t)cp * cp + 3 * cp;
-}
 size_t scores_smem(int cp) {
   return sizeof(float) * ((size_t)2 * 2 * cp * kLd1 + 2 * cp);
 }
@@ -138,11 +134,8 @@ size_t scan_smem(int cp, int dk, int tv) {
 
 // Shared memory (floats): two stages of q_s [CP][kLd1] and k_s [CP][kLd1],
 // then A_s [CP], g_s [CP]. Up to CP = 64 the micro-tile fits 64 registers,
-// so four blocks share an SM. kBwd writes the backward's record instead:
-//   Z[t][s] = (s <= t) ? (q_t . k_s) exp(clip(A_t - A_s)) : 0   (W without
-//   the gate, so that W = Z g_s rounds as the forward's W does),
-//   eA[t], ec[s] = exp(clip(A_C - A_s)) and A[t]   (bwd_record_floats).
-template <typename T, int CP, bool kBwd = false>
+// so four blocks share an SM.
+template <typename T, int CP>
 __global__ void __launch_bounds__(kThreads, CP <= 64 ? 4 : 1)
 ssm_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ a, const float* __restrict__ g,
@@ -246,8 +239,7 @@ ssm_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();  // A_s, g_s visible (dk >= 1 gives one barrier above too)
 
-  float* rec = ws + (int64_t)blockIdx.x *
-                        (kBwd ? bwd_record_floats(CP) : record_floats(CP));
+  float* rec = ws + (int64_t)blockIdx.x * record_floats(CP);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int t = ty + 16 * i;
@@ -255,22 +247,14 @@ ssm_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int l = 0; l < R; ++l) {
       const int s = tx + 16 * l;
       float w = 0.f;
-      if (s <= t && t < C) {
-        w = acc[i][l] * exp_clip(A_s[t] - A_s[s]);
-        if constexpr (!kBwd) w *= g_s[s];
-      }
+      if (s <= t && t < C) w = acc[i][l] * exp_clip(A_s[t] - A_s[s]) * g_s[s];
       rec[t * CP + s] = w;
     }
   }
   const float a_tot = A_s[C - 1];
   for (int t = tid; t < CP; t += kThreads) {
     rec[CP * CP + t] = t < C ? exp_clip(A_s[t]) : 0.f;
-    if constexpr (kBwd) {
-      rec[CP * CP + CP + t] = t < C ? exp_clip(a_tot - A_s[t]) : 0.f;
-      rec[CP * CP + 2 * CP + t] = A_s[t];
-    } else {
-      rec[CP * CP + CP + t] = t < C ? exp_clip(a_tot - A_s[t]) * g_s[t] : 0.f;
-    }
+    rec[CP * CP + CP + t] = t < C ? exp_clip(a_tot - A_s[t]) * g_s[t] : 0.f;
   }
 }
 
@@ -352,17 +336,14 @@ __device__ __forceinline__ void mma_cols(float (&u)[RU][4],
 //   x_s   2 x [CP][kLd2] two stages of a 64-wide dk slab of q or k
 //   ea_s, wk_s [CP]
 // (the explicit minimum of one block lets ptxas use up to 255 registers;
-// with it no instantiation spills). kRecord is the backward's recompute:
-// it writes the state entering each chunk to states [B*H][n_chunks][dk][dv]
-// and skips y, the last chunk's update and the final state.
-template <typename T, int CP, int TV, bool kRecord = false>
+// with it no instantiation spills)
+template <typename T, int CP, int TV>
 __global__ void __launch_bounds__(kThreads, 1)
 ssm_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ ws,
                 const float* __restrict__ init, T* __restrict__ y,
-                float* __restrict__ state_out, float* __restrict__ states,
-                int S, int H, int dk, int dv, int C, bool vec_qk,
-                bool vec_v) {
+                float* __restrict__ state_out, int S, int H, int dk, int dv,
+                int C, bool vec_qk, bool vec_v) {
   constexpr int NCG = TV / 4;             // column groups of 4
   constexpr int NRG = kThreads / NCG;     // row groups
   constexpr int R = CP >= NRG ? CP / NRG : 1;
@@ -416,26 +397,16 @@ ssm_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
       copy4(v_s + 4 * i, v + ((tb + t) * H + h) * dv + j0 + c, v,
             t < C ? min(4, dv - j0 - c) : 0, vec_v);
     }
-    if constexpr (!kRecord) {
-      for (int i = tid; i < CP * CP / 4; i += kThreads) {
-        const int r = i / (CP / 4), c = 4 * (i % (CP / 4));
-        copy16(w_s + r * LDW + c, rec + r * CP + c);
-      }
+    for (int i = tid; i < CP * CP / 4; i += kThreads) {
+      const int r = i / (CP / 4), c = 4 * (i % (CP / 4));
+      copy16(w_s + r * LDW + c, rec + r * CP + c);
     }
     if (tid < CP / 2) copy16(ea_s + 4 * tid, rec + CP * CP + 4 * tid);
-    fetch(carry && !kRecord ? q : k, tb, 0, x_s);
+    fetch(carry ? q : k, tb, 0, x_s);
     copy_wait();
     __syncthreads();  // also: the previous chunk's state update is done
     int stage = 0;
 
-    if constexpr (kRecord) {
-      float* sp = states + ((int64_t)bh * n_chunks + ci) * dk * dv;
-      for (int i = tid; i < dk * TV; i += kThreads) {
-        const int d = i / TV, j = j0 + i % TV;
-        if (j < dv) sp[(int64_t)d * dv + j] = carry ? st_s[i] : 0.f;
-      }
-      if (ci == n_chunks - 1) break;
-    } else {
     // y = eA * (q . S_prev) + W v
     float acc[R][4];
 #pragma unroll
@@ -479,7 +450,6 @@ ssm_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();  // every read of v_s for y is done
-    }
     for (int i = tid; i < CP * TV; i += kThreads) v_s[i] *= wk_s[i / TV];
     __syncthreads();
 
@@ -538,32 +508,31 @@ int allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int CP, bool kBwd = false>
+template <typename T, int CP>
 int launch_scores(const void* q, const void* k, const float* a,
                   const float* g, float* ws, int B, int S, int H, int dk,
                   int C, int vec, cudaStream_t stream) {
   const size_t smem = scores_smem(CP);
-  int e = allow_smem(ssm_scores_kernel<T, CP, kBwd>, smem);
+  int e = allow_smem(ssm_scores_kernel<T, CP>, smem);
   if (e) return e;
-  ssm_scores_kernel<T, CP, kBwd><<<B * H * (S / C), kThreads, smem, stream>>>(
+  ssm_scores_kernel<T, CP><<<B * H * (S / C), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), a, g, ws, S, H, dk,
       C, (vec & 1) != 0);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int CP, int TV, bool kRecord = false>
+template <typename T, int CP, int TV>
 int launch_scan(const void* v, const void* q, const void* k, const float* ws,
                 const float* init, void* y, float* state, int B, int S, int H,
-                int dk, int dv, int C, int vec, cudaStream_t stream,
-                float* states = nullptr) {
+                int dk, int dv, int C, int vec, cudaStream_t stream) {
   const size_t smem = scan_smem(CP, dk, TV);
-  int e = allow_smem(ssm_scan_kernel<T, CP, TV, kRecord>, smem);
+  int e = allow_smem(ssm_scan_kernel<T, CP, TV>, smem);
   if (e) return e;
   dim3 grid(B * H, (dv + TV - 1) / TV);
-  ssm_scan_kernel<T, CP, TV, kRecord><<<grid, kThreads, smem, stream>>>(
+  ssm_scan_kernel<T, CP, TV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), ws, init, static_cast<T*>(y), state, states,
-      S, H, dk, dv, C, (vec & 1) != 0, (vec & 2) != 0);
+      static_cast<const T*>(v), ws, init, static_cast<T*>(y), state, S, H,
+      dk, dv, C, (vec & 1) != 0, (vec & 2) != 0);
   return (int)cudaGetLastError();
 }
 
@@ -607,449 +576,1039 @@ int padded_chunk(int C) {
   return C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : C <= 128 ? 128 : 0;
 }
 
+
 // ---------------------------------------------------------------- backward
 //
 // The exact gradient of the chunked form above (float32 only). Per chunk,
-// with Z the backward record's scores, D[t][s] = dy_t . v_s, W = Z g_s,
-// Dm = D exp(clip(A_t - A_s)) g_s (s <= t), dS the gradient of the state
-// leaving the chunk and S_prev the state entering it:
+// with Z[t][s] = (s <= t) (q_t . k_s) exp(clip(A_t - A_s)), W = Z g_s (the
+// forward's scores, rounded as the forward rounds them), D[t][s] = dy_t .
+// v_s, Dm = D exp(clip(A_t - A_s)) g_s (s <= t), wk_s = ec_s g_s with ec_s =
+// exp(clip(A_C - A_s)), dS the gradient of the state leaving the chunk and
+// S_prev the state entering it:
 //   dq_t  = sum_s Dm[t][s] k_s + eA_t S_prev dy_t
-//   dk_s  = sum_t Dm[t][s] q_t + wk_s dS v_s            (wk = ec g)
+//   dk_s  = sum_t Dm[t][s] q_t + wk_s dS v_s
 //   dv_s  = sum_t W[t][s] dy_t + wk_s dS^T k_s
 //   dg_s  = sum_t D[t][s] Z[t][s] + ec_s (k_s . dS v_s)
 //   dA    from P = D W (row sums minus column sums), eA_t q_t . S_prev dy_t,
 //         and the carry's exp(clip(A_C)) <dS, S_prev> and wk_s k_s . dS v_s,
 //         each only where its exponent lies inside the clip
-//   dS_prev = exp(clip(A_C)) dS + sum_t eA_t q_t dy_t^T
-// One call runs five launches on the caller's stream: the forward's scores
-// pass and its scan pass in kRecord mode (the state entering every chunk,
-// into a workspace), the scores pass again in kBwd mode (its record over
-// the forward's, which the scan has read), the backward pass, and the sums.
+//   S_next  = exp(clip(A_C)) S_prev + U,  U = sum_s wk_s k_s v_s^T
+//   dS_prev = exp(clip(A_C)) dS + V,      V = sum_t eA_t q_t dy_t^T
+// Bound by float32 operations: per (b, h) and chunk the lower triangles of
+// q k^T and dy v^T and of the three C x C products of dq, dk and dv, and
+// five (dk x dv) state products (~51.5 GFLOP at zamba2's train shape).
 //
-// The backward pass: grid (B*H, ceil(dv/TV)), one block per dv tile walks
-// the chunks in reverse, carrying its (dk x TV) slice of dS in shared
-// memory. dv and d(initial_state) of its tile it writes whole; dq, dk and
-// the per-step dA, dg sum over dv, so each tile writes its part and a
-// second pass adds the parts in tile order (no atomics: a run repeats bit
-// for bit). q and k stream through 16-wide dk slabs. Every product is a
-// block-wide loop over small register tiles read from shared memory
-// (block_mm), float32 FMAs throughout.
+// Design: every pass but the recurrences runs over the chunks in parallel,
+// and only the recurrences walk them in order, element by element. Each C x
+// C product is formed once a chunk; each output element is written by one
+// block with its whole sum inside it, so a call uses no atomics and repeats
+// bit for bit. ssm_chunk_scan_bwd_launch runs six launches on the caller's
+// stream:
+// 1. Record pass, a block a (b, h, chunk): A = cumsum(a) as the scores pass
+//    forms it, D over dv and Z over dk in 32-wide slabs (the scores pass's
+//    register tiles, only the 16 x 16 blocks on or below the diagonal),
+//    then W, Dm, P's row sums minus its column sums, D Z's column sums,
+//    eA, wk, ec and A into the chunk's record (bwd_record_floats).
+// 2. State products, a block a (b, h, chunk, 64 x 64 tile): U^T (into the
+//    states workspace, [dv][dk] a chunk) and V (into the gradients
+//    workspace, [dk][dv]), each thread 4 x 4 of each (mma_cols). U is not
+//    needed for the last chunk, nor V for the first without an initial
+//    state.
+// 3. Recurrences, a thread four elements of a (b, h) state: S over the
+//    chunks in order from the initial state or zero, dS in reverse from the
+//    final state's gradient or zero, each written over its U or V; then
+//    d(initial_state).
+// 4. dq or dk, a block a (b, h, chunk, 64-wide dk tile, which of the two),
+//    its C rows in registers: first eA (dy S_prev^T) or wk (v dS^T) over
+//    dv in 16-wide slabs (then each row's dot with q or k, the dA and dg
+//    terms, as this tile's parts, and its part of <dS, S_prev>), then Dm k
+//    or Dm^T q over the chunk in 16-wide slabs, skipping the row groups a
+//    slab's triangle leaves at zero.
+// 5. dv, a block a (b, h, chunk, 64-wide dv tile): wk (k dS) over dk, then
+//    W^T dy over the chunk, likewise.
+// 6. The per-step scalars, a warp a (b, h, chunk): the dk tiles' parts
+//    summed in tile order, the carry's terms, then dA summed from the
+//    chunk's end into d(log_decay) (A = cumsum(a)), and d(gate).
+// Every product of passes 4 and 5 is one register-tiled form (mma_tri:
+// each thread R rows strided by 16 x 4 columns, float4 reads from shared
+// memory); the operands that form reads transposed (dS^T in pass 4, Dm^T
+// and W^T in passes 4 and 5) are loaded into registers a slab ahead and
+// stored transposed, the others come by cp.async, two stages in flight.
 
-constexpr int kSlabB = 16;          // dk rows a backward slab
-constexpr int kLdB = kSlabB + 1;    // the slab's row stride
+constexpr int kSlabG = 16;          // the contraction slab of passes 2, 4, 5
+constexpr int kLdG = kSlabG + 4;    // row stride of a [rows][16] slab
+constexpr int kTile = 64;           // dk, dv tile of passes 2, 4, 5
+constexpr int kLdT = kTile + 4;     // row stride of a [16][64] slab
 
-size_t bwd_smem(int cp, int dk, int tv) {
-  const size_t lv = tv + 1, lx = cp + 1;
+// one chunk's backward record: W [CP][CP], Dm [CP][CP], then six vectors
+// of CP: eA, wk, ec, A, dAi (P's row sums minus its column sums: the
+// intra-chunk dA), dgi (D Z's column sums: the intra-chunk d(gate))
+__host__ __device__ constexpr int64_t bwd_record_floats(int cp) {
+  return 2 * (int64_t)cp * cp + 6 * cp;
+}
+enum { kVecEA = 0, kVecWK, kVecEC, kVecA, kVecDAI, kVecDGI };
+
+size_t bwd_record_smem(int cp) {
+  const size_t r = cp / 16;
   return sizeof(float) *
-         ((size_t)round_up(dk, kSlabB) * lv + 2 * (size_t)cp * lv +
-          2 * (size_t)cp * lx + 3 * (size_t)cp * kLdB + kSlabB * lv +
-          8 * (size_t)cp + kSlabB + 2);
+         ((size_t)2 * 2 * cp * kLd1 + r * (r + 1) / 2 * kThreads + 3 * cp);
+}
+size_t bwd_state_smem(int cp) {
+  return sizeof(float) * ((size_t)2 * 4 * kSlabG * kLdT + 2 * cp);
+}
+size_t bwd_qk_smem(int cp) {
+  return sizeof(float) *
+         ((size_t)2 * (cp * kLdG + 2 * kSlabG * kLdT) + cp + 8);
+}
+size_t bwd_v_smem(int cp) {
+  return sizeof(float) * ((size_t)2 * (cp * kLdG + kSlabG * kLdT) + cp);
 }
 
 __device__ __forceinline__ bool clip_live(float x) {
   return x >= -kClip && x <= kClip;
 }
 
-// out[m][n] = sum_{kk < K1} a1(m, kk) b1(kk, n), and a second product over
-// K2 beside it, for m < M, n < N (multiples of RM, RN), each handed once to
-// epi(m, n, first, second). A thread takes RM x RN tiles in turn: rows m0
-// .. m0 + RM - 1 and columns nc + j * (N / RN), so that neighbouring
-// threads read neighbouring columns of b and the same rows of a.
-template <int RM, int RN, class FA1, class FB1, class FA2, class FB2,
-          class FE>
-__device__ __forceinline__ void block_mm2(int M, int N, int K1, FA1 a1,
-                                          FB1 b1, int K2, FA2 a2, FB2 b2,
-                                          FE epi) {
-  const int ncol = N / RN;
-  const int tiles = (M / RM) * ncol;
-  for (int tile = threadIdx.x; tile < tiles; tile += kThreads) {
-    const int m0 = RM * (tile / ncol), nc = tile % ncol;
-    float c1[RM][RN], c2[RM][RN];
+// acc[i][c] += sum_{kk < 16} A[rg + 16 i][kk] B[kk][j + c] for the row
+// groups ilo <= i <= ihi: outside them a slab's triangle gives zero. A
+// [rows][kLdG] and B [16][kLdT] in shared memory, read as float4.
+template <int R>
+__device__ __forceinline__ void mma_tri(float (&acc)[R][4],
+                                        const float* __restrict__ A,
+                                        const float* __restrict__ Bm, int rg,
+                                        int j, int ilo, int ihi) {
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+  for (int kk = 0; kk < kSlabG; kk += 4) {
+    const float4 b0 = *reinterpret_cast<const float4*>(Bm + (kk + 0) * kLdT + j);
+    const float4 b1 = *reinterpret_cast<const float4*>(Bm + (kk + 1) * kLdT + j);
+    const float4 b2 = *reinterpret_cast<const float4*>(Bm + (kk + 2) * kLdT + j);
+    const float4 b3 = *reinterpret_cast<const float4*>(Bm + (kk + 3) * kLdT + j);
 #pragma unroll
-      for (int j = 0; j < RN; ++j) c1[i][j] = c2[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < K1; ++kk) {
-      float av[RM], bv[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) av[i] = a1(m0 + i, kk);
-#pragma unroll
-      for (int j = 0; j < RN; ++j) bv[j] = b1(kk, nc + j * ncol);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) c1[i][j] = fmaf(av[i], bv[j], c1[i][j]);
+    for (int i = 0; i < R; ++i) {
+      if (i < ilo || i > ihi) continue;
+      const float4 av =
+          *reinterpret_cast<const float4*>(A + (rg + 16 * i) * kLdG + kk);
+      acc[i][0] = fmaf(av.x, b0.x, acc[i][0]);
+      acc[i][1] = fmaf(av.x, b0.y, acc[i][1]);
+      acc[i][2] = fmaf(av.x, b0.z, acc[i][2]);
+      acc[i][3] = fmaf(av.x, b0.w, acc[i][3]);
+      acc[i][0] = fmaf(av.y, b1.x, acc[i][0]);
+      acc[i][1] = fmaf(av.y, b1.y, acc[i][1]);
+      acc[i][2] = fmaf(av.y, b1.z, acc[i][2]);
+      acc[i][3] = fmaf(av.y, b1.w, acc[i][3]);
+      acc[i][0] = fmaf(av.z, b2.x, acc[i][0]);
+      acc[i][1] = fmaf(av.z, b2.y, acc[i][1]);
+      acc[i][2] = fmaf(av.z, b2.z, acc[i][2]);
+      acc[i][3] = fmaf(av.z, b2.w, acc[i][3]);
+      acc[i][0] = fmaf(av.w, b3.x, acc[i][0]);
+      acc[i][1] = fmaf(av.w, b3.y, acc[i][1]);
+      acc[i][2] = fmaf(av.w, b3.z, acc[i][2]);
+      acc[i][3] = fmaf(av.w, b3.w, acc[i][3]);
     }
-#pragma unroll 4
-    for (int kk = 0; kk < K2; ++kk) {
-      float av[RM], bv[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) av[i] = a2(m0 + i, kk);
-#pragma unroll
-      for (int j = 0; j < RN; ++j) bv[j] = b2(kk, nc + j * ncol);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) c2[i][j] = fmaf(av[i], bv[j], c2[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j)
-        epi(m0 + i, nc + j * ncol, c1[i][j], c2[i][j]);
   }
 }
 
-template <int RM, int RN, class FA, class FB, class FE>
-__device__ __forceinline__ void block_mm(int M, int N, int K, FA a, FB b,
-                                         FE epi) {
-  block_mm2<RM, RN>(M, N, K, a, b, 0, a, b,
-                    [&](int m, int n, float c, float) { epi(m, n, c); });
+// 4 consecutive floats of global memory (n_valid of them, zero past it):
+// one float4 load where the caller knows them aligned (vec), else scalars
+__device__ __forceinline__ float4 load4(const float* src, int n_valid,
+                                        bool vec) {
+  if (vec && n_valid >= 4) return *reinterpret_cast<const float4*>(src);
+  float x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = e < n_valid ? src[e] : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(float* dst, float4 x, int n_valid,
+                                       bool vec) {
+  if (vec && n_valid >= 4) {
+    *reinterpret_cast<float4*>(dst) = x;
+    return;
+  }
+  const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < n_valid) dst[e] = v[e];
 }
 
-// Shared memory (floats; row strides padded by one against bank conflicts):
-//   dS_s [dk16][TV+1]  the tile's dS (dk16 = dk rounded up to 16)
-//   v_s, dy_s [CP][TV+1]
-//   X_s [CP][CP+1]     Z, then W, then k dS (CP x TV)
-//   Y_s [CP][CP+1]     D, then Dm
-//   q_s, k_s, r_s [CP][17]  a dk slab of q and k; dA's inter-chunk terms
-//   sp_s [16][TV+1]    a slab of S_prev
-//   eA, ec, A, g, dAr (+ row sums of P), dAc (- column sums of P and the
-//   carry's terms), dg, dAi (q_t . S_prev dy_t) [CP]; dsd [16]; two sums
-template <int CP, int TV>
-__global__ void __launch_bounds__(kThreads, 1)
-ssm_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ g,
-               const float* __restrict__ dy, const float* __restrict__ dstate,
-               const float* __restrict__ rec_ws,
-               const float* __restrict__ states, float* __restrict__ dv_out,
-               float* __restrict__ dq_part, float* __restrict__ dk_part,
-               float* __restrict__ da_part, float* __restrict__ dg_part,
-               float* __restrict__ dinit, int B, int S, int H, int dk,
-               int dv, int C) {
-  constexpr int LV = TV + 1, LX = CP + 1, KS = kSlabB, LK = kLdB;
+// Pass 1's products: one 32-wide slab (columns d0 ..) of the chunk's rows
+// of x and y, into a stage; then acc[i][l] (l <= i: the 16 x 16 blocks on
+// or below the diagonal) += row ty + 16 i of x . row tx + 16 l of y over
+// K, slab 0 already in flight, in the scores pass's slabs, tiles and order
+template <int CP>
+__device__ __forceinline__ void tri_fetch(const float* x, const float* y,
+                                          int K, bool vec, int64_t tb, int H,
+                                          int h, int C, int d0, float* st) {
+  for (int i = threadIdx.x; i < CP * kSlab1 / 4; i += kThreads) {
+    const int t = i / (kSlab1 / 4), dd = 4 * (i % (kSlab1 / 4));
+    const int nv = t < C ? min(4, K - d0 - dd) : 0;
+    const int64_t o = ((tb + t) * H + h) * K + d0 + dd;
+    copy4(st + t * kLd1 + dd, x + o, x, nv, vec);
+    copy4(st + CP * kLd1 + t * kLd1 + dd, y + o, y, nv, vec);
+  }
+  copy_commit();
+}
+template <int CP>
+__device__ __forceinline__ void tri_product(float (&acc)[CP / 16][CP / 16],
+                                            const float* x, const float* y,
+                                            int K, bool vec, int64_t tb,
+                                            int H, int h, int C,
+                                            float* stages) {
+  constexpr int R = CP / 16;
+  constexpr int kStage = 2 * CP * kLd1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n_slabs = (K + kSlab1 - 1) / kSlab1;
+  for (int n = 0; n < n_slabs; ++n) {
+    copy_wait();
+    __syncthreads();  // slab n landed; slab n - 1 is consumed
+    if (n + 1 < n_slabs)
+      tri_fetch<CP>(x, y, K, vec, tb, H, h, C, (n + 1) * kSlab1,
+                    stages + ((n + 1) & 1) * kStage);
+    const float* x_s = stages + (n & 1) * kStage;
+    const float* y_s = x_s + CP * kLd1;
+#pragma unroll 1
+    for (int dd = 0; dd < kSlab1; dd += 4) {
+      float4 yr[R];
+#pragma unroll
+      for (int l = 0; l < R; ++l)
+        yr[l] = *reinterpret_cast<const float4*>(y_s + (tx + 16 * l) * kLd1 + dd);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float4 xr =
+            *reinterpret_cast<const float4*>(x_s + (ty + 16 * i) * kLd1 + dd);
+#pragma unroll
+        for (int l = 0; l <= i; ++l) {
+          float s = acc[i][l];
+          s = fmaf(xr.x, yr[l].x, s);
+          s = fmaf(xr.y, yr[l].y, s);
+          s = fmaf(xr.z, yr[l].z, s);
+          s = fmaf(xr.w, yr[l].w, s);
+          acc[i][l] = s;
+        }
+      }
+    }
+  }
+  __syncthreads();  // every stage consumed
+}
+
+// Pass 1. Shared memory (floats): two stages of x_s, y_s [CP][kLd1] (a
+// slab of dy and v, then of q and k), each thread's D kept while Z is
+// formed (R (R + 1) / 2 floats a thread, thread-major), A_s, g_s, rows_s
+// [CP]; after the products the stages hold the warps' column sums
+// [8][2][CP].
+template <int CP>
+__global__ void __launch_bounds__(kThreads, CP <= 64 ? 4 : 2)
+ssm_bwd_record_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dy,
+                      const float* __restrict__ a, const float* __restrict__ g,
+                      float* __restrict__ rec_ws, int S, int H, int dk, int dv,
+                      int C, int vec) {
+  constexpr int R = CP / 16;
+  constexpr int kStage = 2 * CP * kLd1;
   extern __shared__ float4 smem4[];
-  const int dk_pad = round_up(dk, KS);
-  float* dS_s = reinterpret_cast<float*>(smem4);
-  float* v_s = dS_s + dk_pad * LV;
-  float* dy_s = v_s + CP * LV;
-  float* X_s = dy_s + CP * LV;
-  float* Y_s = X_s + CP * LX;
-  float* q_s = Y_s + CP * LX;
-  float* k_s = q_s + CP * LK;
-  float* r_s = k_s + CP * LK;
-  float* sp_s = r_s + CP * LK;
-  float* eA_s = sp_s + KS * LV;
-  float* ec_s = eA_s + CP;
-  float* A_s = ec_s + CP;
+  float* stages = reinterpret_cast<float*>(smem4);
+  float* d_s = stages + 2 * kStage;
+  float* A_s = d_s + R * (R + 1) / 2 * kThreads;
   float* g_s = A_s + CP;
-  float* dAr = g_s + CP;
-  float* dAc = dAr + CP;
-  float* dgs = dAc + CP;
-  float* dAi = dgs + CP;
-  float* dsd = dAi + CP;
-  float* sums = dsd + KS;  // <dS, S_prev>, sum of the carry's dA terms
+  float* rows_s = g_s + CP;
 
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int64_t part = (int64_t)blockIdx.y * B * S * H;  // this tile's rows
-  const int j0 = blockIdx.y * TV;
+  const int n_chunks = S / C;
+  const int bh = blockIdx.x / n_chunks;
+  const int ci = blockIdx.x - bh * n_chunks;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int64_t tb = (int64_t)b * S + (int64_t)ci * C;
   const int tid = threadIdx.x;
-  const int n_chunks = S / C;
+  const int tx = tid & 15, ty = tid >> 4;
 
-  for (int i = tid; i < dk_pad * TV; i += kThreads) {
-    const int d = i / TV, j = i % TV;
-    dS_s[d * LV + j] = (dstate != nullptr && d < dk && j0 + j < dv)
-                           ? dstate[((int64_t)bh * dk + d) * dv + j0 + j]
-                           : 0.f;
-  }
-
-  for (int ci = n_chunks - 1; ci >= 0; --ci) {
-    const int64_t tb = (int64_t)b * S + (int64_t)ci * C;  // step 0's row / H
-    const float* rec =
-        rec_ws + ((int64_t)bh * n_chunks + ci) * bwd_record_floats(CP);
-    const float* sprev = states + ((int64_t)bh * n_chunks + ci) * dk * dv;
-    for (int i = tid; i < CP * TV; i += kThreads) {
-      const int t = i / TV, j = i % TV;
-      const bool ok = t < C && j0 + j < dv;
-      const int64_t o = ((tb + t) * H + h) * dv + j0 + j;
-      v_s[t * LV + j] = ok ? v[o] : 0.f;
-      dy_s[t * LV + j] = ok ? dy[o] : 0.f;
+  tri_fetch<CP>(dy, v, dv, (vec & 2) != 0, tb, H, h, C, 0, stages);
+  // A = cumsum(a) and g, as the scores pass forms them (lane 0, left to
+  // right), while dy and v's first slab is in flight
+  if (tid < 32) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int t = 4 * tid + u;
+      if (t < CP) A_s[t] = t < C ? a[(tb + t) * H + h] : 0.f;
     }
-    for (int i = tid; i < CP * CP; i += kThreads)
-      X_s[(i / CP) * LX + i % CP] = rec[i];
-    for (int t = tid; t < CP; t += kThreads) {
-      eA_s[t] = rec[CP * CP + t];
-      ec_s[t] = rec[CP * CP + CP + t];
-      A_s[t] = rec[CP * CP + 2 * CP + t];
-      g_s[t] = t < C ? g[(tb + t) * H + h] : 0.f;
-      dAi[t] = 0.f;
-    }
-    if (tid == 0) sums[0] = 0.f;
-    __syncthreads();
-
-    // D = dy v^T over this tile's columns
-    block_mm<4, 4>(
-        CP, CP, TV, [&](int t, int j) { return dy_s[t * LV + j]; },
-        [&](int j, int s) { return v_s[s * LV + j]; },
-        [&](int t, int s, float x) { Y_s[t * LX + s] = x; });
-    __syncthreads();
-
-    // P = D Z g, where the clip passes A_t - A_s: its row sums (dAr) and
-    // column sums (dAc); dg's intra-chunk part, the column sums of D Z
-    for (int i = tid; i < 2 * CP; i += kThreads) {
-      if (i < CP) {
-        const int t = i;
-        float acc = 0.f;
-        for (int s = 0; s <= t; ++s) {
-          const float p = Y_s[t * LX + s] * X_s[t * LX + s] * g_s[s];
-          if (clip_live(A_s[t] - A_s[s])) acc += p;
-        }
-        dAr[t] = acc;
-      } else {
-        const int s = i - CP;
-        float pc = 0.f, dz = 0.f;
-        for (int t = s; t < CP; ++t) {
-          const float z = Y_s[t * LX + s] * X_s[t * LX + s];
-          dz += z;
-          if (clip_live(A_s[t] - A_s[s])) pc += z * g_s[s];
-        }
-        dAc[s] = pc;
-        dgs[s] = dz;
-      }
-    }
-    __syncthreads();
-
-    // W = Z g into X, Dm into Y
-    for (int i = tid; i < CP * CP; i += kThreads) {
-      const int t = i / CP, s = i % CP;
-      X_s[t * LX + s] *= g_s[s];
-      Y_s[t * LX + s] = (s <= t && t < C)
-                            ? Y_s[t * LX + s] * exp_clip(A_s[t] - A_s[s]) *
-                                  g_s[s]
-                            : 0.f;
-    }
-    __syncthreads();
-
-    // dv = W^T dy, its intra-chunk part; the carry's part is added below
-    block_mm<4, 4>(
-        CP, TV, CP, [&](int s, int t) { return X_s[t * LX + s]; },
-        [&](int t, int j) { return dy_s[t * LV + j]; },
-        [&](int s, int j, float x) {
-          if (s < C && j0 + j < dv)
-            dv_out[((tb + s) * H + h) * dv + j0 + j] = x;
-        });
-    __syncthreads();  // X is free: it takes k dS from here
-
-    const float decay = eA_s[C - 1];  // exp(clip(A_C))
-    for (int n = 0; n < dk_pad / KS; ++n) {
-      const int d0 = n * KS;
-      for (int i = tid; i < CP * KS; i += kThreads) {
-        const int t = i / KS, d = i % KS;
-        const bool ok = t < C && d0 + d < dk;
-        const int64_t o = ((tb + t) * H + h) * dk + d0 + d;
-        q_s[t * LK + d] = ok ? q[o] : 0.f;
-        k_s[t * LK + d] = ok ? k[o] : 0.f;
-      }
-      for (int i = tid; i < KS * TV; i += kThreads) {
-        const int d = i / TV, j = i % TV;
-        sp_s[d * LV + j] = (d0 + d < dk && j0 + j < dv)
-                               ? sprev[(int64_t)(d0 + d) * dv + j0 + j]
-                               : 0.f;
-      }
-      __syncthreads();
-      // k dS, summed over the slabs in X
-      block_mm<4, 4>(
-          CP, TV, KS, [&](int s, int d) { return k_s[s * LK + d]; },
-          [&](int d, int j) { return dS_s[(d0 + d) * LV + j]; },
-          [&](int s, int j, float x) {
-            X_s[s * LX + j] = n ? X_s[s * LX + j] + x : x;
-          });
-      // dq = Dm k + eA (S_prev dy); r = q * (S_prev dy) for dA
-      block_mm2<2, 4>(
-          CP, KS, CP, [&](int t, int s) { return Y_s[t * LX + s]; },
-          [&](int s, int d) { return k_s[s * LK + d]; }, TV,
-          [&](int t, int j) { return dy_s[t * LV + j]; },
-          [&](int j, int d) { return sp_s[d * LV + j]; },
-          [&](int t, int d, float intra, float inter) {
-            r_s[t * LK + d] = inter * q_s[t * LK + d];
-            if (t < C && d0 + d < dk)
-              dq_part[(part + (tb + t) * H + h) * dk + d0 + d] =
-                  fmaf(eA_s[t], inter, intra);
-          });
-      // dk = Dm^T q + wk (dS v)
-      block_mm2<2, 4>(
-          CP, KS, CP, [&](int s, int t) { return Y_s[t * LX + s]; },
-          [&](int t, int d) { return q_s[t * LK + d]; }, TV,
-          [&](int s, int j) { return v_s[s * LV + j]; },
-          [&](int j, int d) { return dS_s[(d0 + d) * LV + j]; },
-          [&](int s, int d, float intra, float carry) {
-            if (s < C && d0 + d < dk)
-              dk_part[(part + (tb + s) * H + h) * dk + d0 + d] =
-                  fmaf(ec_s[s] * g_s[s], carry, intra);
-          });
-      for (int d = tid; d < KS; d += kThreads) {
-        float acc = 0.f;
-        for (int j = 0; j < TV; ++j)
-          acc = fmaf(dS_s[(d0 + d) * LV + j], sp_s[d * LV + j], acc);
-        dsd[d] = acc;
-      }
-      __syncthreads();
-      // dS_prev = exp(clip(A_C)) dS + sum_t eA_t q_t dy_t^T, this slab
-      block_mm<1, 2>(
-          KS, TV, CP, [&](int d, int t) { return eA_s[t] * q_s[t * LK + d]; },
-          [&](int t, int j) { return dy_s[t * LV + j]; },
-          [&](int d, int j, float x) {
-            float* p = dS_s + (d0 + d) * LV + j;
-            *p = fmaf(decay, *p, x);
-          });
-      for (int t = tid; t < CP; t += kThreads) {
-        float acc = dAi[t];
-        for (int d = 0; d < KS; ++d) acc += r_s[t * LK + d];
-        dAi[t] = acc;
-      }
-      if (tid == 0) {
-        float acc = sums[0];
-        for (int d = 0; d < KS; ++d) acc += dsd[d];
-        sums[0] = acc;
-      }
-      __syncthreads();
-    }
-
-    // the carry's terms: dv += wk (k dS); r_s = k_s . dS v_s = (k dS)_s . v_s
-    for (int s = tid; s < CP; s += kThreads) {
-      float r = 0.f;
-      for (int j = 0; j < TV; ++j) r = fmaf(X_s[s * LX + j], v_s[s * LV + j], r);
-      const float wk = ec_s[s] * g_s[s];
-      const float qs = clip_live(A_s[C - 1] - A_s[s]) ? wk * r : 0.f;
-      dgs[s] += ec_s[s] * r;
-      dAc[s] += qs;
-      r_s[s * LK] = s < C ? qs : 0.f;
-    }
-    for (int i = tid; i < CP * TV; i += kThreads) {
-      const int s = i / TV, j = i % TV;
-      if (s < C && j0 + j < dv)
-        dv_out[((tb + s) * H + h) * dv + j0 + j] +=
-            ec_s[s] * g_s[s] * X_s[s * LX + j];
-    }
-    __syncthreads();
+    __syncwarp();
     if (tid == 0) {
-      float acc = 0.f;
-      for (int s = 0; s < C; ++s) acc += r_s[s * LK];
-      if (clip_live(A_s[C - 1])) acc += decay * sums[0];
-      sums[1] = acc;
+      float run = 0.f;
+#pragma unroll 1
+      for (int t0 = 0; t0 < CP; t0 += 8) {
+        float x[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) x[u] = A_s[t0 + u];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          run += x[u];
+          A_s[t0 + u] = run;
+        }
+      }
+    }
+  }
+  for (int t = tid; t < CP; t += kThreads)
+    g_s[t] = t < C ? g[(tb + t) * H + h] : 0.f;
+
+  // D first, kept in shared memory (each thread its own), then Z
+  float acc[R][R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int l = 0; l < R; ++l) acc[i][l] = 0.f;
+  tri_product<CP>(acc, dy, v, dv, (vec & 2) != 0, tb, H, h, C, stages);
+  tri_fetch<CP>(q, k, dk, (vec & 1) != 0, tb, H, h, C, 0, stages);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int l = 0; l <= i; ++l) {
+      d_s[(i * (i + 1) / 2 + l) * kThreads + tid] = acc[i][l];
+      acc[i][l] = 0.f;
+    }
+  tri_product<CP>(acc, q, k, dk, (vec & 1) != 0, tb, H, h, C, stages);
+
+  float* rec = rec_ws + (int64_t)blockIdx.x * bwd_record_floats(CP);
+  float* vecs = rec + 2 * CP * CP;
+  float rowp[R], colp[R], coldz[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) rowp[i] = colp[i] = coldz[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int t = ty + 16 * i;
+#pragma unroll
+    for (int l = 0; l < R; ++l) {
+      const int s = tx + 16 * l;
+      float w = 0.f, dm = 0.f;
+      if (l <= i && s <= t && t < C) {
+        const float x = A_s[t] - A_s[s];
+        const float e = exp_clip(x);
+        const float z = acc[i][l] * e;
+        const float d = d_s[(i * (i + 1) / 2 + l) * kThreads + tid];
+        w = z * g_s[s];
+        dm = d * e * g_s[s];
+        coldz[l] += d * z;
+        if (clip_live(x)) {
+          const float p = d * w;
+          rowp[i] += p;
+          colp[l] += p;
+        }
+      }
+      rec[t * CP + s] = w;
+      rec[CP * CP + t * CP + s] = dm;
+    }
+  }
+  // row sums over the 16 lanes of a row (tx), column sums over the two rows
+  // of a warp and then the 8 warps, each in a fixed order
+  const int warp = tid >> 5;
+  float* red = stages;  // [8][2][CP]
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float r = rowp[i];
+    r += __shfl_down_sync(0xffffffffu, r, 8, 16);
+    r += __shfl_down_sync(0xffffffffu, r, 4, 16);
+    r += __shfl_down_sync(0xffffffffu, r, 2, 16);
+    r += __shfl_down_sync(0xffffffffu, r, 1, 16);
+    if (tx == 0) rows_s[ty + 16 * i] = r;
+  }
+#pragma unroll
+  for (int l = 0; l < R; ++l) {
+    const float c0 = colp[l] + __shfl_down_sync(0xffffffffu, colp[l], 16);
+    const float c1 = coldz[l] + __shfl_down_sync(0xffffffffu, coldz[l], 16);
+    if ((tid & 31) < 16) {
+      red[(warp * 2) * CP + tx + 16 * l] = c0;
+      red[(warp * 2 + 1) * CP + tx + 16 * l] = c1;
+    }
+  }
+  __syncthreads();
+  const float a_tot = A_s[C - 1];
+  for (int t = tid; t < CP; t += kThreads) {
+    float cp_ = 0.f, cz = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < kThreads / 32; ++w8) {
+      cp_ += red[(w8 * 2) * CP + t];
+      cz += red[(w8 * 2 + 1) * CP + t];
+    }
+    const bool in = t < C;
+    const float ec = in ? exp_clip(a_tot - A_s[t]) : 0.f;
+    vecs[kVecEA * CP + t] = in ? exp_clip(A_s[t]) : 0.f;
+    vecs[kVecWK * CP + t] = ec * g_s[t];
+    vecs[kVecEC * CP + t] = ec;
+    vecs[kVecA * CP + t] = A_s[t];
+    vecs[kVecDAI * CP + t] = in ? rows_s[t] - cp_ : 0.f;
+    vecs[kVecDGI * CP + t] = in ? cz : 0.f;
+  }
+}
+
+// Pass 2. Shared memory (floats): two stages of k_s, q_s, v_s, dy_s
+// [16][kLdT] (k scaled by wk and q by eA once landed), wk_s, eA_s [CP].
+// U^T's rows are this tile's dv columns, V's its dk rows; a thread owns 4
+// consecutive rows x 4 consecutive columns of each.
+template <int CP>
+__global__ void __launch_bounds__(kThreads, 3)
+ssm_bwd_state_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dy,
+                     const float* __restrict__ rec_ws, float* __restrict__ sp,
+                     float* __restrict__ ds, int S, int H, int dk, int dv,
+                     int C, int has_init, int vec) {
+  constexpr int kArr = kSlabG * kLdT;
+  constexpr int kStage = 4 * kArr;
+  extern __shared__ float4 smem4[];
+  float* stages = reinterpret_cast<float*>(smem4);
+  float* wk_s = stages + 2 * kStage;
+  float* eA_s = wk_s + CP;
+
+  const int n_chunks = S / C;
+  const int bh = blockIdx.x / n_chunks;
+  const int ci = blockIdx.x - bh * n_chunks;
+  const bool doU = ci + 1 < n_chunks;
+  const bool doV = ci > 0 || has_init;
+  if (!doU && !doV) return;
+  const int b = bh / H, h = bh - b * H;
+  const int ntd = (dk + kTile - 1) / kTile;
+  const int d0 = kTile * (blockIdx.y % ntd), j0 = kTile * (blockIdx.y / ntd);
+  const int64_t tb = (int64_t)b * S + (int64_t)ci * C;
+  const int tid = threadIdx.x;
+  const int rl = 4 * (tid >> 4), cl = 4 * (tid & 15);
+  const bool vqk = (vec & 1) != 0, vv = (vec & 2) != 0;
+  const float* rec = rec_ws + (int64_t)blockIdx.x * bwd_record_floats(CP);
+  for (int t = tid; t < CP; t += kThreads) {
+    wk_s[t] = rec[2 * CP * CP + kVecWK * CP + t];
+    eA_s[t] = rec[2 * CP * CP + kVecEA * CP + t];
+  }
+
+  auto fetch = [&](int s0, float* st) {
+    for (int i = tid; i < kSlabG * kTile / 4; i += kThreads) {
+      const int r = i / (kTile / 4), c = 4 * (i % (kTile / 4));
+      const int64_t row = (tb + s0 + r) * H + h;
+      const bool in = s0 + r < C;
+      const int nd = in ? min(4, dk - d0 - c) : 0;
+      const int nj = in ? min(4, dv - j0 - c) : 0;
+      copy4(st + r * kLdT + c, k + row * dk + d0 + c, k, nd, vqk);
+      copy4(st + kArr + r * kLdT + c, q + row * dk + d0 + c, q, nd, vqk);
+      copy4(st + 2 * kArr + r * kLdT + c, v + row * dv + j0 + c, v, nj, vv);
+      copy4(st + 3 * kArr + r * kLdT + c, dy + row * dv + j0 + c, dy, nj, vv);
+    }
+    copy_commit();
+  };
+  float uacc[4][4], vacc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) uacc[i][c] = vacc[i][c] = 0.f;
+  const int n_slabs = (C + kSlabG - 1) / kSlabG;
+  fetch(0, stages);
+  for (int n = 0; n < n_slabs; ++n) {
+    copy_wait();
+    __syncthreads();  // slab n landed; slab n - 1 consumed
+    if (n + 1 < n_slabs) fetch((n + 1) * kSlabG, stages + ((n + 1) & 1) * kStage);
+    float* st = stages + (n & 1) * kStage;
+    for (int i = tid; i < kSlabG * kTile; i += kThreads) {
+      const int r = i / kTile, c = i % kTile;
+      st[r * kLdT + c] *= wk_s[n * kSlabG + r];
+      st[kArr + r * kLdT + c] *= eA_s[n * kSlabG + r];
     }
     __syncthreads();
-    for (int t = tid; t < C; t += kThreads) {
-      float a = dAr[t] - dAc[t];
-      if (clip_live(A_s[t])) a += eA_s[t] * dAi[t];
-      if (t == C - 1) a += sums[1];
-      da_part[part + (tb + t) * H + h] = a;
-      dg_part[part + (tb + t) * H + h] = dgs[t];
-    }
-    __syncthreads();  // before the next chunk's loads
+    if (doU) mma_cols<4>(uacc, st + 2 * kArr, kLdT, st, kLdT, kSlabG, rl, cl);
+    if (doV) mma_cols<4>(vacc, st + kArr, kLdT, st + 3 * kArr, kLdT, kSlabG, rl, cl);
   }
-  if (dinit != nullptr) {
-    for (int i = tid; i < dk * TV; i += kThreads) {
-      const int d = i / TV, j = i % TV;
-      if (j0 + j < dv) dinit[((int64_t)bh * dk + d) * dv + j0 + j] = dS_s[d * LV + j];
-    }
-  }
-}
-
-// out = the sum of nt parts of n floats each, in part order
-__global__ void ssm_bwd_sum_kernel(const float* __restrict__ parts,
-                                   float* __restrict__ out, int64_t n,
-                                   int nt) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float acc = parts[i];
-    for (int p = 1; p < nt; ++p) acc += parts[p * n + i];
-    out[i] = acc;
+  const int64_t chunk = (int64_t)blockIdx.x * dk * dv;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (doU && j0 + rl + i < dv)
+      store4(sp + chunk + (int64_t)(j0 + rl + i) * dk + d0 + cl,
+             make_float4(uacc[i][0], uacc[i][1], uacc[i][2], uacc[i][3]),
+             dk - d0 - cl, dk % 4 == 0);
+    if (doV && d0 + rl + i < dk)
+      store4(ds + chunk + (int64_t)(d0 + rl + i) * dv + j0 + cl,
+             make_float4(vacc[i][0], vacc[i][1], vacc[i][2], vacc[i][3]),
+             dv - j0 - cl, dv % 4 == 0);
   }
 }
 
-// d(log_decay) and d(gate), one (b, h, chunk) a thread: each step's parts
-// summed in tile order, then dA summed from the chunk's end (A = cumsum(a))
-__global__ void ssm_bwd_decay_kernel(const float* __restrict__ da_part,
-                                     const float* __restrict__ dg_part,
-                                     float* __restrict__ da,
-                                     float* __restrict__ dg, int B, int S,
-                                     int H, int C, int nt) {
+// Pass 3: four consecutive elements of a (b, h) state a thread (p the
+// first's index in a chunk's dk * dv floats); blockIdx.y 0 walks S over sp
+// ([dv][dk] a chunk), 1 walks dS over ds ([dk][dv]). Each chunk's U or V
+// is read before the value entering or leaving the chunk is written over
+// it; 8 chunks' loads are in flight at a time.
+__device__ __forceinline__ float4 fma4(float a, float4 x, float4 y) {
+  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
+                     fmaf(a, x.w, y.w));
+}
+__global__ void ssm_bwd_carry_kernel(const float* __restrict__ rec_ws,
+                                     const float* __restrict__ init,
+                                     const float* __restrict__ dstate,
+                                     float* __restrict__ sp,
+                                     float* __restrict__ ds,
+                                     float* __restrict__ dinit, int64_t BH,
+                                     int n, int dk, int dv, int CP, int C) {
+  constexpr int kAhead = 8;
+  const int64_t per = (int64_t)dk * dv, quads = (per + 3) / 4;
+  const int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (idx >= BH * quads) return;
+  const int64_t bh = idx / quads, p = 4 * (idx - bh * quads);
+  const int nv = (int)(per - p < 4 ? per - p : 4);
+  const bool vec = per % 4 == 0;  // every chunk's quads 16-byte aligned
+  const int64_t recf = bwd_record_floats(CP);
+  const float* decay = rec_ws + bh * n * recf + 2 * (int64_t)CP * CP +
+                       kVecEA * CP + C - 1;  // chunk ci's at decay[ci * recf]
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (blockIdx.y == 0) {
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (init != nullptr)
+      for (int e = 0; e < nv; ++e)
+        x[e] = init[bh * per + ((p + e) % dk) * dv + (p + e) / dk];
+    float4 st = make_float4(x[0], x[1], x[2], x[3]);
+    float* sc = sp + bh * n * per + p;
+    for (int c0 = 0; c0 < n; c0 += kAhead) {
+      float4 u[kAhead];
+      float f[kAhead];
+#pragma unroll
+      for (int c = 0; c < kAhead; ++c) {
+        const int ci = c0 + c;
+        u[c] = ci + 1 < n ? load4(sc + ci * per, nv, vec) : zero;
+        f[c] = ci + 1 < n ? decay[ci * recf] : 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < kAhead; ++c) {
+        const int ci = c0 + c;
+        if (ci < n) {
+          store4(sc + ci * per, st, nv, vec);
+          st = fma4(f[c], st, u[c]);
+        }
+      }
+    }
+  } else {
+    float4 d = dstate != nullptr ? load4(dstate + bh * per + p, nv, vec)
+                                 : zero;
+    float* sc = ds + bh * n * per + p;
+    const int lo = dinit != nullptr ? 0 : 1;  // V of chunk 0 only feeds dinit
+    for (int c0 = n - 1; c0 >= 0; c0 -= kAhead) {
+      float4 w[kAhead];
+      float f[kAhead];
+#pragma unroll
+      for (int c = 0; c < kAhead; ++c) {
+        const int ci = c0 - c;
+        w[c] = ci >= lo ? load4(sc + ci * per, nv, vec) : zero;
+        f[c] = ci >= lo ? decay[ci * recf] : 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < kAhead; ++c) {
+        const int ci = c0 - c;
+        if (ci >= 0) {
+          store4(sc + ci * per, d, nv, vec);
+          d = fma4(f[c], d, w[c]);
+        }
+      }
+    }
+    if (dinit != nullptr) store4(dinit + bh * per + p, d, nv, vec);
+  }
+}
+
+// Pass 4, a block a (b, h, chunk, 64-wide dk tile, role): role 0 writes
+// dq, role 1 dk. Shared memory (floats): two stages of X_s [CP][kLdG] and
+// P_s, Q_s [16][kLdT]. Over dv, role 0 takes dy into X_s and S_prev^T into
+// P_s; role 1 v into X_s, S_prev^T into P_s (for <dS, S_prev>) and dS^T
+// into Q_s, stored transposed from registers. Over the chunk, role 0 takes
+// a column slab of Dm into X_s and k rows into P_s; role 1 a row slab of
+// Dm, stored transposed into X_s, and q rows into P_s. Then eA or wk [CP]
+// and red [8]. A thread owns rows rg + 16 i (i < CP / 16) and 4 columns.
+template <int CP, int ROLE>
+__device__ __forceinline__ void bwd_qk_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dy,
+    const float* __restrict__ rec_ws, const float* __restrict__ sp,
+    const float* __restrict__ ds, float* __restrict__ out,
+    float* __restrict__ part, float* __restrict__ dsd_part, int B, int S,
+    int H, int dk, int dv, int C, bool live, int vec) {
+  constexpr int R = CP / 16;
+  constexpr int kLong = CP * kLdG, kShort = kSlabG * kLdT;
+  constexpr int kStage = kLong + 2 * kShort;
+  constexpr int NQ = (kSlabG * CP / 4 + kThreads - 1) / kThreads;  // Dm^T
+  constexpr int NA = kSlabG * kTile / 4 / kThreads;  // dS^T float4s a thread
+  extern __shared__ float4 smem4[];
+  float* stages = reinterpret_cast<float*>(smem4);
+  float* scale_s = stages + 2 * kStage;  // eA (role 0) or wk (role 1)
+  float* red = scale_s + CP;
+
   const int n_chunks = S / C;
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= (int64_t)B * H * n_chunks) return;
-  const int64_t rows = (int64_t)B * S * H;
-  const int ci = (int)(i % n_chunks);
-  const int64_t bh = i / n_chunks;
-  const int64_t b = bh / H, h = bh % H;
-  float run = 0.f;
-  for (int t = C - 1; t >= 0; --t) {
-    const int64_t r = (b * S + (int64_t)ci * C + t) * H + h;
-    float a = da_part[r], gg = dg_part[r];
-    for (int p = 1; p < nt; ++p) {
-      a += da_part[p * rows + r];
-      gg += dg_part[p * rows + r];
+  const int bh = blockIdx.x / n_chunks;
+  const int ci = blockIdx.x - bh * n_chunks;
+  const int b = bh / H, h = bh - b * H;
+  const int d0 = kTile * blockIdx.y;
+  const int64_t tb = (int64_t)b * S + (int64_t)ci * C;
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4, jl = 4 * (tid & 15);
+  const bool vqk = (vec & 1) != 0, vv = (vec & 2) != 0;
+  // live: role 0's S_prev, role 1's dS is not zero
+  const int nA = live ? (dv + kSlabG - 1) / kSlabG : 0;
+  const int nB = (C + kSlabG - 1) / kSlabG;
+  const int64_t chunk = (int64_t)blockIdx.x * dk * dv;
+  const float* rec = rec_ws + (int64_t)blockIdx.x * bwd_record_floats(CP);
+  for (int t = tid; t < CP; t += kThreads)
+    scale_s[t] = rec[2 * CP * CP + (ROLE ? kVecWK : kVecEA) * CP + t];
+
+  // slab m: m < nA the dv columns 16 m .., else the chunk's steps
+  // 16 (m - nA) ..; fetch() starts its cp.async copies, gather() loads
+  // role 1's transposed operand into registers, scatter() stores it
+  auto fetch = [&](int m, float* st) {
+    if (m < nA) {
+      const int j0 = kSlabG * m;
+      const float* x = ROLE ? v : dy;
+      for (int i = tid; i < CP * kSlabG / 4; i += kThreads) {
+        const int t = i / (kSlabG / 4), c = 4 * (i % (kSlabG / 4));
+        copy4(st + t * kLdG + c, x + ((tb + t) * H + h) * dv + j0 + c, x,
+              t < C ? min(4, dv - j0 - c) : 0, vv);
+      }
+      for (int i = tid; i < kSlabG * kTile / 4; i += kThreads) {
+        const int r = i / (kTile / 4), c = 4 * (i % (kTile / 4));
+        copy4(st + kLong + r * kLdT + c,
+              sp + chunk + (int64_t)(j0 + r) * dk + d0 + c, sp,
+              j0 + r < dv ? min(4, dk - d0 - c) : 0, dk % 4 == 0);
+      }
+    } else {
+      const int s0 = kSlabG * (m - nA);
+      if (ROLE == 0) {
+        for (int i = tid; i < CP * kSlabG / 4; i += kThreads) {
+          const int t = i / (kSlabG / 4), c = 4 * (i % (kSlabG / 4));
+          copy16(st + t * kLdG + c, rec + CP * CP + t * CP + s0 + c);
+        }
+      }
+      const float* x = ROLE ? q : k;
+      for (int i = tid; i < kSlabG * kTile / 4; i += kThreads) {
+        const int r = i / (kTile / 4), c = 4 * (i % (kTile / 4));
+        copy4(st + kLong + r * kLdT + c,
+              x + ((tb + s0 + r) * H + h) * dk + d0 + c, x,
+              s0 + r < C ? min(4, dk - d0 - c) : 0, vqk);
+      }
     }
-    run += a;
-    da[r] = run;
-    dg[r] = gg;
+    copy_commit();
+  };
+  float4 reg[NQ > NA ? NQ : NA];
+  auto gather = [&](int m) {
+    if (ROLE == 0) return;
+    if (m < nA) {  // dS rows d0 + (i % 64), columns kSlabG m + 4 (i / 64) ..
+#pragma unroll
+      for (int u = 0; u < NA; ++u) {
+        const int i = tid + kThreads * u;
+        const int d = i % kTile, j = kSlabG * m + 4 * (i / kTile);
+        reg[u] = d0 + d < dk
+                     ? load4(ds + chunk + (int64_t)(d0 + d) * dv + j,
+                             min(4, dv - j), dv % 4 == 0)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {  // Dm rows 16 (m - nA) + (i % 16), columns 4 (i / 16) ..
+      const int t0 = kSlabG * (m - nA);
+#pragma unroll
+      for (int u = 0; u < NQ; ++u) {
+        const int i = tid + kThreads * u;
+        if (i < kSlabG * CP / 4)
+          reg[u] = *reinterpret_cast<const float4*>(
+              rec + CP * CP + (t0 + i % kSlabG) * CP + 4 * (i / kSlabG));
+      }
+    }
+  };
+  auto scatter = [&](int m, float* st) {
+    if (ROLE == 0) return;
+    if (m < nA) {
+      float* Q_s = st + kLong + kShort;
+#pragma unroll
+      for (int u = 0; u < NA; ++u) {
+        const int i = tid + kThreads * u;
+        const int d = i % kTile, c = 4 * (i / kTile);
+        Q_s[(c + 0) * kLdT + d] = reg[u].x;
+        Q_s[(c + 1) * kLdT + d] = reg[u].y;
+        Q_s[(c + 2) * kLdT + d] = reg[u].z;
+        Q_s[(c + 3) * kLdT + d] = reg[u].w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < NQ; ++u) {
+        const int i = tid + kThreads * u;
+        if (i < kSlabG * CP / 4) {
+          const int t = i % kSlabG, s = 4 * (i / kSlabG);
+          st[(s + 0) * kLdG + t] = reg[u].x;
+          st[(s + 1) * kLdG + t] = reg[u].y;
+          st[(s + 2) * kLdG + t] = reg[u].z;
+          st[(s + 3) * kLdG + t] = reg[u].w;
+        }
+      }
+    }
+  };
+
+  float acc[R][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  float dsd = 0.f;
+  const int M = nA + nB;
+  fetch(0, stages);
+  gather(0);
+  scatter(0, stages);
+  for (int m = 0; m < M; ++m) {
+    float* st = stages + (m & 1) * kStage;
+    copy_wait();
+    __syncthreads();  // slab m landed; slab m - 1 consumed
+    if (m + 1 < M) {
+      fetch(m + 1, stages + ((m + 1) & 1) * kStage);
+      gather(m + 1);
+    }
+    if (m == nA) {
+      // the carry's term is complete: this tile's part of q_t . (S_prev
+      // dy_t) (role 0) or k_s . (dS v_s) and <dS, S_prev> (role 1); then
+      // the scale by eA or wk
+      const float* x = ROLE ? k : q;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int t = rg + 16 * i;
+        float y = 0.f;
+        if (t < C && d0 + jl < dk) {
+          const float4 xv = load4(x + ((tb + t) * H + h) * dk + d0 + jl,
+                                  dk - d0 - jl, vqk);
+          y = xv.x * acc[i][0] + xv.y * acc[i][1] + xv.z * acc[i][2] +
+              xv.w * acc[i][3];
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          y += __shfl_down_sync(0xffffffffu, y, o, 16);
+        if (jl == 0 && t < C)
+          part[(int64_t)blockIdx.y * B * S * H + (tb + t) * H + h] = y;
+        const float e = scale_s[t];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] *= e;
+      }
+      if (ROLE == 1) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          dsd += __shfl_down_sync(0xffffffffu, dsd, o);
+        if ((tid & 31) == 0) red[tid >> 5] = dsd;
+        __syncthreads();
+        if (tid == 0) {
+          float y = 0.f;
+          for (int w8 = 0; w8 < kThreads / 32; ++w8) y += red[w8];
+          dsd_part[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = y;
+        }
+      }
+    }
+    if (m < nA) {
+      mma_tri<R>(acc, st, st + kLong + ROLE * kShort, rg, jl, 0, R - 1);
+      if (ROLE == 1) {
+        const float* P_s = st + kLong;
+#pragma unroll
+        for (int e = 0; e < kSlabG * kTile / kThreads; ++e) {
+          const int i = tid + kThreads * e;
+          const int o = (i / kTile) * kLdT + i % kTile;
+          dsd = fmaf(P_s[o], P_s[kShort + o], dsd);
+        }
+      }
+    } else if (ROLE == 0) {  // Dm k over slab n's columns s: rows t >= s
+      mma_tri<R>(acc, st, st + kLong, rg, jl, m - nA, R - 1);
+    } else {  // Dm^T q over slab n's rows t: rows s <= t
+      mma_tri<R>(acc, st, st + kLong, rg, jl, 0, m - nA);
+    }
+    if (m + 1 < M) scatter(m + 1, stages + ((m + 1) & 1) * kStage);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int t = rg + 16 * i;
+    if (t < C && d0 + jl < dk)
+      store4(out + ((tb + t) * H + h) * dk + d0 + jl,
+             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]),
+             dk - d0 - jl, vqk);
   }
 }
 
-template <int CP, int TV>
-int launch_bwd(const float* q, const float* k, const float* v,
-               const float* g, const float* dy, const float* dstate,
-               const float* rec, const float* states, float* dv_out,
-               float* dq_part, float* dk_part, float* da_part,
-               float* dg_part, float* dinit, int B, int S, int H, int dk,
-               int dv, int C, cudaStream_t stream) {
-  const size_t smem = bwd_smem(CP, dk, TV);
-  int e = allow_smem(ssm_bwd_kernel<CP, TV>, smem);
+template <int CP>
+__global__ void __launch_bounds__(kThreads, 2)
+ssm_bwd_qk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dy,
+                  const float* __restrict__ rec_ws,
+                  const float* __restrict__ sp, const float* __restrict__ ds,
+                  float* __restrict__ dq, float* __restrict__ dk_out,
+                  float* __restrict__ qs_part, float* __restrict__ r_part,
+                  float* __restrict__ dsd_part, int B, int S, int H, int dk,
+                  int dv, int C, int has_init, int has_dstate, int vec) {
+  const int ci = blockIdx.x % (S / C);
+  if (blockIdx.z == 0)
+    bwd_qk_block<CP, 0>(q, k, v, dy, rec_ws, sp, ds, dq, qs_part, dsd_part,
+                        B, S, H, dk, dv, C, ci > 0 || has_init, vec);
+  else
+    bwd_qk_block<CP, 1>(q, k, v, dy, rec_ws, sp, ds, dk_out, r_part,
+                        dsd_part, B, S, H, dk, dv, C,
+                        ci + 1 < S / C || has_dstate, vec);
+}
+
+// Pass 5. Shared memory (floats): two stages of X_s [CP][kLdG] (a 16-wide
+// column slab of k, then a row slab of W stored transposed) and P_s
+// [16][kLdT] (dS rows, then dy rows), then wk_s [CP]. A thread owns rows
+// rg + 16 i of the tile's dv and 4 of its columns.
+template <int CP>
+__global__ void __launch_bounds__(kThreads, 2)
+ssm_bwd_v_kernel(const float* __restrict__ k, const float* __restrict__ dy,
+                 const float* __restrict__ rec_ws,
+                 const float* __restrict__ ds, float* __restrict__ dv_out,
+                 int S, int H, int dk, int dv, int C, int has_dstate,
+                 int vec) {
+  constexpr int R = CP / 16;
+  constexpr int kLong = CP * kLdG, kShort = kSlabG * kLdT;
+  constexpr int kStage = kLong + kShort;
+  constexpr int NQ = (kSlabG * CP / 4 + kThreads - 1) / kThreads;  // W^T
+  extern __shared__ float4 smem4[];
+  float* stages = reinterpret_cast<float*>(smem4);
+  float* wk_s = stages + 2 * kStage;
+
+  const int n_chunks = S / C;
+  const int bh = blockIdx.x / n_chunks;
+  const int ci = blockIdx.x - bh * n_chunks;
+  const int b = bh / H, h = bh - b * H;
+  const int j0 = kTile * blockIdx.y;
+  const int64_t tb = (int64_t)b * S + (int64_t)ci * C;
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4, jl = 4 * (tid & 15);
+  const bool vqk = (vec & 1) != 0, vv = (vec & 2) != 0;
+  const bool doC = ci + 1 < n_chunks || has_dstate;  // dS is not zero
+  const int nA = doC ? (dk + kSlabG - 1) / kSlabG : 0;
+  const int nB = (C + kSlabG - 1) / kSlabG;
+  const int64_t chunk = (int64_t)blockIdx.x * dk * dv;
+  const float* rec = rec_ws + (int64_t)blockIdx.x * bwd_record_floats(CP);
+  for (int t = tid; t < CP; t += kThreads)
+    wk_s[t] = rec[2 * CP * CP + kVecWK * CP + t];
+
+  // slab m: m < nA the dk rows 16 m .., else the chunk's steps 16 (m - nA) ..
+  auto fetch = [&](int m, float* st) {
+    if (m < nA) {
+      const int d0 = kSlabG * m;
+      for (int i = tid; i < CP * kSlabG / 4; i += kThreads) {
+        const int s = i / (kSlabG / 4), c = 4 * (i % (kSlabG / 4));
+        copy4(st + s * kLdG + c, k + ((tb + s) * H + h) * dk + d0 + c, k,
+              s < C ? min(4, dk - d0 - c) : 0, vqk);
+      }
+      for (int i = tid; i < kSlabG * kTile / 4; i += kThreads) {
+        const int r = i / (kTile / 4), c = 4 * (i % (kTile / 4));
+        copy4(st + kLong + r * kLdT + c,
+              ds + chunk + (int64_t)(d0 + r) * dv + j0 + c, ds,
+              d0 + r < dk ? min(4, dv - j0 - c) : 0, dv % 4 == 0);
+      }
+    } else {
+      const int t0 = kSlabG * (m - nA);
+      for (int i = tid; i < kSlabG * kTile / 4; i += kThreads) {
+        const int r = i / (kTile / 4), c = 4 * (i % (kTile / 4));
+        copy4(st + kLong + r * kLdT + c,
+              dy + ((tb + t0 + r) * H + h) * dv + j0 + c, dy,
+              t0 + r < C ? min(4, dv - j0 - c) : 0, vv);
+      }
+    }
+    copy_commit();
+  };
+  float4 reg[NQ];
+  // W rows 16 (m - nA) + (i % 16), columns 4 (i / 16) ..
+  auto gather = [&](int m) {
+    if (m < nA) return;
+    const int t0 = kSlabG * (m - nA);
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      const int i = tid + kThreads * u;
+      if (i < kSlabG * CP / 4)
+        reg[u] = *reinterpret_cast<const float4*>(
+            rec + (t0 + i % kSlabG) * CP + 4 * (i / kSlabG));
+    }
+  };
+  auto scatter = [&](int m, float* st) {
+    if (m < nA) return;
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      const int i = tid + kThreads * u;
+      if (i < kSlabG * CP / 4) {
+        const int t = i % kSlabG, s = 4 * (i / kSlabG);
+        st[(s + 0) * kLdG + t] = reg[u].x;
+        st[(s + 1) * kLdG + t] = reg[u].y;
+        st[(s + 2) * kLdG + t] = reg[u].z;
+        st[(s + 3) * kLdG + t] = reg[u].w;
+      }
+    }
+  };
+
+  float acc[R][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  const int M = nA + nB;
+  fetch(0, stages);
+  gather(0);
+  scatter(0, stages);
+  for (int m = 0; m < M; ++m) {
+    float* st = stages + (m & 1) * kStage;
+    copy_wait();
+    __syncthreads();  // slab m landed; slab m - 1 consumed
+    if (m + 1 < M) {
+      fetch(m + 1, stages + ((m + 1) & 1) * kStage);
+      gather(m + 1);
+    }
+    if (m == nA) {  // k dS is complete: scale it by wk
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float w = wk_s[rg + 16 * i];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] *= w;
+      }
+    }
+    if (m < nA)
+      mma_tri<R>(acc, st, st + kLong, rg, jl, 0, R - 1);
+    else  // W^T dy over slab n's steps t: rows s <= t
+      mma_tri<R>(acc, st, st + kLong, rg, jl, 0, m - nA);
+    if (m + 1 < M) scatter(m + 1, stages + ((m + 1) & 1) * kStage);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int s = rg + 16 * i;
+    if (s < C && j0 + jl < dv)
+      store4(dv_out + ((tb + s) * H + h) * dv + j0 + jl,
+             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]),
+             dv - j0 - jl, vv);
+  }
+}
+
+// Pass 6: a warp a (b, h, chunk), lane l the steps 4 l .. 4 l + 3. Every
+// sum runs in a fixed order: the dk tiles' parts in tile order, the
+// chunk's sum of the carry's dA terms down to lane 0, the suffix sums
+// within a lane and then over the lanes above it.
+__global__ void ssm_bwd_scalars_kernel(const float* __restrict__ rec_ws,
+                                       const float* __restrict__ qs_part,
+                                       const float* __restrict__ r_part,
+                                       const float* __restrict__ dsd_part,
+                                       float* __restrict__ da,
+                                       float* __restrict__ dg, int B, int S,
+                                       int H, int C, int CP, int ntd) {
+  const int n = S / C;
+  const int64_t chunks = (int64_t)B * H * n;
+  const int64_t w = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= chunks) return;
+  const int64_t bh = w / n;
+  const int ci = (int)(w - bh * n);
+  const int64_t b = bh / H, h = bh % H;
+  const float* vecs = rec_ws + w * bwd_record_floats(CP) + 2 * (int64_t)CP * CP;
+  const int64_t rows = (int64_t)B * S * H;
+  const float a_c = vecs[kVecA * CP + C - 1];
+  const float decay = vecs[kVecEA * CP + C - 1];
+  float x[4], qsum = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int t = 4 * lane + e;
+    x[e] = 0.f;
+    if (t < C) {
+      const int64_t row = (b * S + (int64_t)ci * C + t) * H + h;
+      float qs = 0.f, r = 0.f;
+      for (int p = 0; p < ntd; ++p) {
+        qs += qs_part[p * rows + row];
+        r += r_part[p * rows + row];
+      }
+      const float At = vecs[kVecA * CP + t];
+      const float Q = clip_live(a_c - At) ? vecs[kVecWK * CP + t] * r : 0.f;
+      float a = vecs[kVecDAI * CP + t] - Q;
+      if (clip_live(At)) a += vecs[kVecEA * CP + t] * qs;
+      x[e] = a;
+      qsum += Q;
+      dg[row] = vecs[kVecDGI * CP + t] + vecs[kVecEC * CP + t] * r;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) qsum += __shfl_down_sync(0xffffffffu, qsum, o);
+  qsum = __shfl_sync(0xffffffffu, qsum, 0);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (4 * lane + e == C - 1) {  // the chunk's last step takes the carry's terms
+      float dsd = 0.f;
+      for (int p = 0; p < ntd; ++p) dsd += dsd_part[p * chunks + w];
+      float c = qsum;
+      if (clip_live(a_c)) c += decay * dsd;
+      x[e] += c;
+    }
+  }
+  x[2] += x[3];
+  x[1] += x[2];
+  x[0] += x[1];
+  float above = x[0];  // becomes the sum over this lane and the lanes above
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_down_sync(0xffffffffu, above, o);
+    if (lane + o < 32) above += y;
+  }
+  above = __shfl_down_sync(0xffffffffu, above, 1);
+  if (lane == 31) above = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int t = 4 * lane + e;
+    if (t < C) da[(b * S + (int64_t)ci * C + t) * H + h] = x[e] + above;
+  }
+}
+
+// the backward's kernels ask for the largest shared-memory carveout, so
+// that two blocks of the record pass fit an SM
+template <typename K>
+int allow_smem_bwd(K kernel, size_t bytes) {
+  const int e = allow_smem(kernel, bytes);
   if (e) return e;
-  dim3 grid(B * H, (dv + TV - 1) / TV);
-  ssm_bwd_kernel<CP, TV><<<grid, kThreads, smem, stream>>>(
-      q, k, v, g, dy, dstate, rec, states, dv_out, dq_part, dk_part,
-      da_part, dg_part, dinit, B, S, H, dk, dv, C);
-  return (int)cudaGetLastError();
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
 }
 
 template <int CP>
 int launch_bwd_cp(const float* q, const float* k, const float* v,
                   const float* a, const float* g, const float* init,
-                  const float* dy, const float* dstate, float* rec,
-                  float* states, float* dv_out, float* dq_part,
-                  float* dk_part, float* da_part, float* dg_part,
-                  float* dinit, int B, int S, int H, int dk, int dv, int C,
-                  int tv, int tb, int vec, cudaStream_t s) {
-  int e = launch_scores<float, CP>(q, k, a, g, rec, B, S, H, dk, C, vec, s);
-  if (e) return e;
-  if (tv == 64)
-    e = launch_scan<float, CP, 64, true>(v, q, k, rec, init, nullptr,
-                                         nullptr, B, S, H, dk, dv, C, vec, s,
-                                         states);
-  else if (tv == 32)
-    e = launch_scan<float, CP, 32, true>(v, q, k, rec, init, nullptr,
-                                         nullptr, B, S, H, dk, dv, C, vec, s,
-                                         states);
-  else
-    e = (int)cudaErrorInvalidValue;
-  if (e) return e;
-  e = launch_scores<float, CP, true>(q, k, a, g, rec, B, S, H, dk, C, vec, s);
-  if (e) return e;
-  if (tb == 64 && CP >= 64)
-    return launch_bwd<CP, CP >= 64 ? 64 : 16>(
-        q, k, v, g, dy, dstate, rec, states, dv_out, dq_part, dk_part,
-        da_part, dg_part, dinit, B, S, H, dk, dv, C, s);
-  if (tb == 32 && CP >= 32)
-    return launch_bwd<CP, CP >= 32 ? 32 : 16>(
-        q, k, v, g, dy, dstate, rec, states, dv_out, dq_part, dk_part,
-        da_part, dg_part, dinit, B, S, H, dk, dv, C, s);
-  if (tb == 16)
-    return launch_bwd<CP, 16>(q, k, v, g, dy, dstate, rec, states, dv_out,
-                              dq_part, dk_part, da_part, dg_part, dinit, B,
-                              S, H, dk, dv, C, s);
-  return (int)cudaErrorInvalidValue;
+                  const float* dy, const float* dstate, float* dq,
+                  float* dk_out, float* dv_out, float* da, float* dg,
+                  float* dinit, float* rec, float* sp, float* ds,
+                  float* qs_part, float* r_part, float* dsd_part, int B,
+                  int S, int H, int dk, int dv, int C, int vec, int only,
+                  cudaStream_t s) {
+  const int n = S / C;
+  const int64_t chunks = (int64_t)B * H * n;
+  const int ntd = (dk + kTile - 1) / kTile, ntj = (dv + kTile - 1) / kTile;
+  const int has_init = init != nullptr, has_dstate = dstate != nullptr;
+  int e = 0;
+  if (only < 0 || only == 0) {
+    const size_t sm = bwd_record_smem(CP);
+    if ((e = allow_smem_bwd(ssm_bwd_record_kernel<CP>, sm))) return e;
+    ssm_bwd_record_kernel<CP><<<(unsigned)chunks, kThreads, sm, s>>>(
+        q, k, v, dy, a, g, rec, S, H, dk, dv, C, vec);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  if (only < 0 || only == 1) {
+    const size_t sm = bwd_state_smem(CP);
+    if ((e = allow_smem_bwd(ssm_bwd_state_kernel<CP>, sm))) return e;
+    ssm_bwd_state_kernel<CP><<<dim3((unsigned)chunks, ntd * ntj), kThreads,
+                               sm, s>>>(q, k, v, dy, rec, sp, ds, S, H, dk,
+                                        dv, C, has_init, vec);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  if (only < 0 || only == 2) {
+    const int64_t total = (int64_t)B * H * (((int64_t)dk * dv + 3) / 4);
+    ssm_bwd_carry_kernel<<<dim3((unsigned)((total + 255) / 256), 2), 256, 0,
+                           s>>>(rec, init, dstate, sp, ds, dinit, (int64_t)B * H,
+                                n, dk, dv, CP, C);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  if (only < 0 || only == 3) {
+    const size_t sm = bwd_qk_smem(CP);
+    if ((e = allow_smem_bwd(ssm_bwd_qk_kernel<CP>, sm))) return e;
+    ssm_bwd_qk_kernel<CP><<<dim3((unsigned)chunks, ntd, 2), kThreads, sm, s>>>(
+        q, k, v, dy, rec, sp, ds, dq, dk_out, qs_part, r_part, dsd_part, B, S,
+        H, dk, dv, C, has_init, has_dstate, vec);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  if (only < 0 || only == 4) {
+    const size_t sm = bwd_v_smem(CP);
+    if ((e = allow_smem_bwd(ssm_bwd_v_kernel<CP>, sm))) return e;
+    ssm_bwd_v_kernel<CP><<<dim3((unsigned)chunks, ntj), kThreads, sm, s>>>(
+        k, dy, rec, ds, dv_out, S, H, dk, dv, C, has_dstate, vec);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  if (only < 0 || only == 5) {
+    ssm_bwd_scalars_kernel<<<(unsigned)((chunks * 32 + 255) / 256), 256, 0,
+                             s>>>(rec, qs_part, r_part, dsd_part, da, dg, B,
+                                  S, H, C, CP, ntd);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -1097,80 +1656,58 @@ extern "C" long long ssm_scan_plan_bytes(int C, int dk, int tv, int which) {
   return (long long)record_floats(cp);
 }
 
-// The backward of ssm_chunk_scan_launch, float32 only. dy: y's gradient;
-// dstate: the final state's gradient or null (zero); init and dinit: the
-// initial state and its gradient, or null. Outputs dq, dk (B, S, H, dk), dv
-// (B, S, H, dv), da, dg (B, S, H). Workspaces, from ssm_scan_bwd_plan_bytes:
-// rec (B*H*(S/C) backward records), states (B*H*(S/C)*dk*dv floats), and
-// the tiles' parts dq_part, dk_part (nt*B*S*H*dk) and da_part, dg_part
-// (nt*B*S*H), nt = ceil(dv / tb). tv (64 or 32) is the forward scan's dv
-// tile, tb (64, 32 or 16, at most the padded chunk) the backward's.
+// The backward of ssm_chunk_scan_launch (float32 only). q, k: (B, S, H, dk);
+// v and dy (y's gradient): (B, S, H, dv); a, g: (B, S, H); init (the
+// initial state) and dstate (the final state's gradient): (B, H, dk, dv)
+// or null (zero). Outputs: dq, dk_out (B, S, H, dk), dv_out (B, S, H, dv),
+// da, dg (B, S, H), and dinit (B, H, dk, dv), written only where init is
+// given. Workspaces, sized as ssm_scan_bwd_plan_bytes gives them: rec (a
+// record of bwd_record_floats(cp) a chunk), sp and ds (dk * dv floats a
+// chunk each), qs_part and r_part (B*S*H floats a 64-wide dk tile each) and
+// dsd_part (B*H*(S/C) floats a dk tile). S is a multiple of C <= 128. vec:
+// bit 0 says q and k rows may be read 16 bytes at a time (dk % 4 == 0,
+// 16-byte aligned), bit 1 the same of v and dy (dv % 4 == 0). only: -1 runs
+// the six passes in order; 0 to 5 runs that pass alone on a workspace an
+// earlier call filled (its time is measured on its own).
 extern "C" int ssm_chunk_scan_bwd_launch(
     const void* q, const void* k, const void* v, const void* a,
     const void* g, const void* init, const void* dy, const void* dstate,
     void* dq, void* dk_out, void* dv_out, void* da, void* dg, void* dinit,
-    void* rec, void* states, void* dq_part, void* dk_part, void* da_part,
-    void* dg_part, int B, int S, int H, int dk, int dv, int C, int tv,
-    int tb, int vec, void* stream) {
+    void* rec, void* sp, void* ds, void* qs_part, void* r_part,
+    void* dsd_part, int B, int S, int H, int dk, int dv, int C, int vec,
+    int only, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return 0;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* af = static_cast<const float*>(a);
-  const float* gf = static_cast<const float*>(g);
-  const float* in = static_cast<const float*>(init);
-  const float* dyf = static_cast<const float*>(dy);
-  const float* dsf = static_cast<const float*>(dstate);
-  float* recf = static_cast<float*>(rec);
-  float* stf = static_cast<float*>(states);
-  float* dqp = static_cast<float*>(dq_part);
-  float* dkp = static_cast<float*>(dk_part);
-  float* dap = static_cast<float*>(da_part);
-  float* dgp = static_cast<float*>(dg_part);
-  float* dvo = static_cast<float*>(dv_out);
-  float* dio = static_cast<float*>(dinit);
-  int e;
-  if (C <= 16)
-    e = launch_bwd_cp<16>(qf, kf, vf, af, gf, in, dyf, dsf, recf, stf, dvo,
-                          dqp, dkp, dap, dgp, dio, B, S, H, dk, dv, C, tv, tb,
-                          vec, s);
-  else if (C <= 32)
-    e = launch_bwd_cp<32>(qf, kf, vf, af, gf, in, dyf, dsf, recf, stf, dvo,
-                          dqp, dkp, dap, dgp, dio, B, S, H, dk, dv, C, tv, tb,
-                          vec, s);
-  else if (C <= 64)
-    e = launch_bwd_cp<64>(qf, kf, vf, af, gf, in, dyf, dsf, recf, stf, dvo,
-                          dqp, dkp, dap, dgp, dio, B, S, H, dk, dv, C, tv, tb,
-                          vec, s);
-  else if (C <= 128)
-    e = launch_bwd_cp<128>(qf, kf, vf, af, gf, in, dyf, dsf, recf, stf, dvo,
-                           dqp, dkp, dap, dgp, dio, B, S, H, dk, dv, C, tv,
-                           tb, vec, s);
-  else
-    e = (int)cudaErrorInvalidValue;
-  if (e) return e;
-  const int nt = (dv + tb - 1) / tb;
-  const int64_t n = (int64_t)B * S * H * dk;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  ssm_bwd_sum_kernel<<<blocks, 256, 0, s>>>(dqp, static_cast<float*>(dq), n,
-                                            nt);
-  ssm_bwd_sum_kernel<<<blocks, 256, 0, s>>>(dkp, static_cast<float*>(dk_out),
-                                            n, nt);
-  const int64_t chunks = (int64_t)B * H * (S / C);
-  ssm_bwd_decay_kernel<<<(int)((chunks + 127) / 128), 128, 0, s>>>(
-      dap, dgp, static_cast<float*>(da), static_cast<float*>(dg), B, S, H, C,
-      nt);
-  return (int)cudaGetLastError();
+#define SSM_BWD_ARGS(CP)                                                     \
+  launch_bwd_cp<CP>(                                                         \
+      static_cast<const float*>(q), static_cast<const float*>(k),           \
+      static_cast<const float*>(v), static_cast<const float*>(a),           \
+      static_cast<const float*>(g), static_cast<const float*>(init),        \
+      static_cast<const float*>(dy), static_cast<const float*>(dstate),     \
+      static_cast<float*>(dq), static_cast<float*>(dk_out),                 \
+      static_cast<float*>(dv_out), static_cast<float*>(da),                 \
+      static_cast<float*>(dg), static_cast<float*>(dinit),                  \
+      static_cast<float*>(rec), static_cast<float*>(sp),                    \
+      static_cast<float*>(ds), static_cast<float*>(qs_part),                \
+      static_cast<float*>(r_part), static_cast<float*>(dsd_part), B, S, H,  \
+      dk, dv, C, vec, only, s)
+  if (C <= 16) return SSM_BWD_ARGS(16);
+  if (C <= 32) return SSM_BWD_ARGS(32);
+  if (C <= 64) return SSM_BWD_ARGS(64);
+  if (C <= 128) return SSM_BWD_ARGS(128);
+#undef SSM_BWD_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
-// The backward's sizes, as its launcher computes them: which = 0 the
-// backward pass's shared memory a block at dv tile tb, 1 the floats of one
-// chunk's backward record.
-extern "C" long long ssm_scan_bwd_plan_bytes(int C, int dk, int tb,
-                                             int which) {
+// The backward's sizes, as its launcher computes them: which = 0 to 3 the
+// shared memory a block of the record, state-products, dq/dk and dv
+// passes, 4 the floats of one chunk's record.
+extern "C" long long ssm_scan_bwd_plan_bytes(int C, int which) {
   const int cp = padded_chunk(C);
   if (cp == 0) return -1;
-  if (which == 0) return (long long)bwd_smem(cp, dk, tb);
+  if (which == 0) return (long long)bwd_record_smem(cp);
+  if (which == 1) return (long long)bwd_state_smem(cp);
+  if (which == 2) return (long long)bwd_qk_smem(cp);
+  if (which == 3) return (long long)bwd_v_smem(cp);
   return (long long)bwd_record_floats(cp);
 }

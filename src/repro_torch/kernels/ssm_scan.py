@@ -49,19 +49,22 @@ of the state leaving a chunk, is carried backwards,
 
 and each chunk's dq, dk, dv, d(gate) and dA (summed from the chunk's end
 into d(log_decay)) come from its scores, dS and the state entering it.
-It is bound by its float32 operations (the scores and four C x C
-products a chunk, and the state products, ~51.5 GFLOP at zamba2's train
-shape).  Its design: the forward's two passes recompute the state
-entering every chunk into a workspace rather than keep it from the
-forward (nothing is saved but the inputs); one block a (b, h, dv tile)
-walks the chunks in reverse with its dS slice in shared memory, every
-product a block-wide loop over small register tiles; dv and
-d(initial_state) are written whole, while dq, dk, dA and d(gate), which
-sum over dv, are written as each tile's part and added by a second pass
-in tile order, with no atomics, so that a run repeats bit for bit.
+It is bound by its float32 operations (the lower triangles of the scores
+and of four C x C products a chunk, and the state products, ~51.5 GFLOP
+at zamba2's train shape).  Its design: six launches (``BWD_PASSES``), all
+but one over the chunks in parallel.  A record pass a (b, h, chunk) forms
+q k^T and dy v^T once a chunk and writes the forward's W, Dm and the
+per-step sums of P; a state-products pass writes each chunk's state
+increment U and its term V of dS_prev; an element-wise pass runs both
+recurrences over the chunks (nothing is saved from the forward but the
+inputs); a dq/dk pass and a dv pass, a (b, h, chunk, 64-wide tile) a
+block, write every output element whole; a last pass adds the dk tiles'
+parts of the per-step scalars into d(log_decay) and d(gate).  No atomics:
+every sum runs in a fixed order, so a run repeats bit for bit.
 :func:`plan` sizes it (``backward=True``); :func:`ssm_chunk_scan_bwd_plain`
 is the same gradient in plain PyTorch, the kernel's yardstick;
-``ssm_chunk_scan_bwd.launches`` counts its launches.
+``ssm_chunk_scan_bwd.launches`` counts its calls, :func:`bwd_passes` runs
+its passes one at a time for timing.
 """
 from __future__ import annotations
 
@@ -76,16 +79,18 @@ from .sharded import on_shards as _on_shards
 
 __all__ = ["ssm_chunk_scan", "ssm_chunk_scan_plain", "ssm_chunk_scan_bwd",
            "ssm_chunk_scan_bwd_plain", "plan", "Plan", "BwdPlan",
-           "scores_pass"]
+           "scores_pass", "bwd_passes"]
 
 CLIP = 60.0
 TILES_V = (64, 32)   # the scan pass's dv tile, the widest that fits first
-TILES_B = (64, 32, 16)  # the backward pass's dv tile, likewise
-_SLAB_BWD = 16       # dk rows a backward-pass slab
+TILE_B = 64          # the backward's dk and dv tile
+BWD_PASSES = ("record", "states", "recurrences", "dq_dk", "dv", "scalars")
+_SLAB_BWD = 16       # the contraction slab of the backward's later passes
 _SLAB_SCORES = 32    # dk columns a scores-pass slab
 _SLAB_SCAN = 64      # dk columns a scan-pass slab
 _SMEM_MAX = 232448   # the H100's shared memory per block, in bytes
 _GRID_Y_MAX = 65535
+_GRID_X_MAX = 2 ** 31 - 1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -253,48 +258,55 @@ def _scan_smem(cp: int, dk: int, tile_v: int) -> int:
 
 
 class BwdPlan(NamedTuple):
-    """The launch plan of one backward call: the forward's plan (its passes
-    recompute the chunks' states), the backward pass's dv tile and the
-    number of tiles, its shared memory a block, and its workspaces in
-    bytes: the backward records, the states entering every chunk, and the
-    tiles' parts of dq, dk, d(log_decay) and d(gate)."""
+    """The launch plan of one backward call: the forward's plan (the
+    backward takes the shapes the forward takes), the 64-wide dk and dv
+    tiles, the shared memory a block of its record, state-products, dq/dk
+    and dv passes, its workspaces in bytes (the chunks' records; the states
+    entering and the gradients leaving every chunk; the dk tiles' parts of
+    the per-step scalars) and its launches a call."""
     fwd: Plan
-    tile_b: int
-    n_tiles: int
-    bwd_smem: int
+    dk_tiles: int
+    dv_tiles: int
+    smem: tuple
     record_bytes: int
     states_bytes: int
     parts_bytes: int
+    launches: int
 
 
-def _bwd_smem(cp: int, dk: int, tb: int) -> int:
-    # dS, v, dy, X, Y, q, k and r slabs, an S_prev slab, 8 vectors, dsd, 2
-    lv, lx, lk = tb + 1, cp + 1, _SLAB_BWD + 1
-    dk_pad = -(-dk // _SLAB_BWD) * _SLAB_BWD
-    return 4 * (dk_pad * lv + 2 * cp * lv + 2 * cp * lx + 3 * cp * lk
-                + _SLAB_BWD * lv + 8 * cp + _SLAB_BWD + 2)
+def _bwd_smem(cp: int) -> tuple:
+    # record: two stages of two 32-wide slabs, each thread's D (its
+    # R (R + 1) / 2 blocks' entries, R = cp / 16), A, g and P's row sums;
+    # states: two stages of four [16][64] slabs, wk and eA; dq/dk: two
+    # stages of a [cp][16] and two [16][64] slabs, eA or wk and 8 sums;
+    # dv: two stages of one of each, wk
+    sl, lg, lt, r = _SLAB_BWD, _SLAB_BWD + 4, TILE_B + 4, cp // 16
+    return (4 * (4 * cp * (_SLAB_SCORES + 4) + r * (r + 1) // 2 * 256
+                 + 3 * cp),
+            4 * (2 * 4 * sl * lt + 2 * cp),
+            4 * (2 * (cp * lg + 2 * sl * lt) + cp + 8),
+            4 * (2 * (cp * lg + sl * lt) + cp))
 
 
 def _plan_bwd(fwd: Plan, B: int, S: int, H: int, dk: int, dv: int,
               chunk: int) -> BwdPlan:
     cp = fwd.cp
-    fits = [tb for tb in TILES_B
-            if tb <= cp and _bwd_smem(cp, dk, tb) <= _SMEM_MAX]
-    if not fits:
-        raise ValueError(f"ssm_chunk_scan backward kernel: chunk={chunk}, "
-                         f"dk={dk} needs {_bwd_smem(cp, dk, TILES_B[-1])} "
-                         f"bytes of shared memory a block at the narrowest "
-                         f"dv tile, more than the {_SMEM_MAX} a block has")
-    tb = fits[0]
-    nt = -(-dv // tb)
-    if nt > _GRID_Y_MAX:
-        raise ValueError(f"ssm_chunk_scan backward kernel: dv={dv} needs "
-                         f"more than {_GRID_Y_MAX} tiles of {tb}")
     n = S // chunk
-    return BwdPlan(fwd, tb, nt, _bwd_smem(cp, dk, tb),
-                   4 * B * H * n * (cp * cp + 3 * cp),
-                   4 * B * H * n * dk * dv,
-                   4 * nt * B * S * H * (2 * dk + 2))
+    dk_tiles, dv_tiles = -(-dk // TILE_B), -(-dv // TILE_B)
+    if dk_tiles * dv_tiles > _GRID_Y_MAX:
+        raise ValueError(f"ssm_chunk_scan backward kernel: dk={dk}, dv={dv} "
+                         f"need more than {_GRID_Y_MAX} tiles of {TILE_B} x "
+                         f"{TILE_B}")
+    if B * H * n > _GRID_X_MAX or -(-B * H * dk * dv // 256) > _GRID_X_MAX:
+        raise ValueError(f"ssm_chunk_scan backward kernel: B*H*(S/chunk) = "
+                         f"{B * H * n} chunks, or B*H*dk*dv = "
+                         f"{B * H * dk * dv} state elements, overflow its "
+                         f"grid")
+    return BwdPlan(fwd, dk_tiles, dv_tiles, _bwd_smem(cp),
+                   4 * B * H * n * (2 * cp * cp + 6 * cp),
+                   2 * 4 * B * H * n * dk * dv,
+                   4 * dk_tiles * (2 * B * S * H + B * H * n),
+                   len(BWD_PASSES))
 
 
 def plan(B: int, S: int, H: int, dk: int, dv: int, chunk: int, *,
@@ -336,10 +348,10 @@ def _lib():
         lib.ssm_scan_plan_bytes.argtypes = [ctypes.c_int] * 4
         lib.ssm_scan_plan_bytes.restype = ctypes.c_longlong
         bwd = lib.ssm_chunk_scan_bwd_launch
-        bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 9 \
+        bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-        lib.ssm_scan_bwd_plan_bytes.argtypes = [ctypes.c_int] * 4
+        lib.ssm_scan_bwd_plan_bytes.argtypes = [ctypes.c_int] * 2
         lib.ssm_scan_bwd_plan_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -495,10 +507,9 @@ def ssm_chunk_scan_bwd(q, k, v, log_decay, gate, dy, dstate=None, *,
     None (zero).  Returns (dq, dk, dv, d(log_decay), d(gate),
     d(initial_state) or None), float32.  On a CPU tensor it runs
     :func:`ssm_chunk_scan_bwd_plain`; on a CUDA tensor it launches the
-    backward kernel (``ssm_chunk_scan_bwd_launch``: the forward's passes
-    recompute the chunks' states, then the reverse walk and the sums of
-    the dv tiles' parts) or raises.  ``ssm_chunk_scan_bwd.launches``
-    counts calls that launched it."""
+    backward kernel's six passes (``ssm_chunk_scan_bwd_launch``) or
+    raises.  ``ssm_chunk_scan_bwd.launches`` counts calls that launched
+    them."""
     if q.device.type == "cpu":
         return ssm_chunk_scan_bwd_plain(q, k, v, log_decay, gate, dy, dstate,
                                         chunk=chunk,
@@ -528,37 +539,69 @@ def ssm_chunk_scan_bwd(q, k, v, log_decay, gate, dy, dstate=None, *,
     dv_ = torch.empty_like(v)
     da, dg = torch.empty_like(log_decay), torch.empty_like(gate)
     dinit = None if initial_state is None else torch.empty_like(initial_state)
+    out = (dq, dk_, dv_, da, dg, dinit)
     if B * H * S == 0:
-        for t in (dq, dk_, dv_, da, dg):
+        for t in out[:5]:
             t.zero_()
         if dinit is not None:
             dinit.copy_(dstate if dstate is not None else 0.0)
-        return dq, dk_, dv_, da, dg, dinit
+        return out
+    _bwd_launch(bp, (q, k, v, log_decay, gate, dy, dstate, initial_state),
+                out, chunk)
+    ssm_chunk_scan_bwd.launches += 1
+    return out
+
+
+def _bwd_launch(bp: BwdPlan, ins, out, chunk, ws=None, only=-1):
+    """Launch the backward's passes (``only``: one of them, by its index in
+    ``BWD_PASSES``, on the workspace ``ws`` of an earlier call) on the
+    current stream; returns the workspace."""
+    q, k, v, log_decay, gate, dy, dstate, initial_state = ins
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    if ws is None:
+        ws = torch.empty((bp.record_bytes + bp.states_bytes
+                          + bp.parts_bytes) // 4, dtype=torch.float32,
+                         device=q.device)
     n = B * S * H
-    ws = torch.empty((bp.record_bytes + bp.states_bytes + bp.parts_bytes)
-                     // 4, dtype=torch.float32, device=q.device)
-    rec, states, parts = ws.split([bp.record_bytes // 4,
-                                   bp.states_bytes // 4,
-                                   bp.parts_bytes // 4])
-    dq_part, dk_part, da_part, dg_part = parts.split(
-        [bp.n_tiles * n * dk] * 2 + [bp.n_tiles * n] * 2)
+    rec, sp, ds, qs_part, r_part, dsd_part = ws.split(
+        [bp.record_bytes // 4] + [bp.states_bytes // 8] * 2
+        + [bp.dk_tiles * n] * 2 + [bp.dk_tiles * B * H * (S // chunk)])
+    # float32 rows the kernels may read 16 bytes at a time: q and k (bit
+    # 0), v and dy (bit 1)
     vec = (int(dk % 4 == 0 and q.data_ptr() % 16 == 0
                and k.data_ptr() % 16 == 0)
-           | 2 * int(dv % 4 == 0 and v.data_ptr() % 16 == 0))
+           | 2 * int(dv % 4 == 0 and v.data_ptr() % 16 == 0
+                     and dy.data_ptr() % 16 == 0))
     ptr = (lambda t: 0 if t is None else t.data_ptr())
     rc = _lib().ssm_chunk_scan_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
-        gate.data_ptr(), ptr(initial_state), dy.data_ptr(), ptr(dstate),
-        dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), da.data_ptr(),
-        dg.data_ptr(), ptr(dinit), rec.data_ptr(), states.data_ptr(),
-        dq_part.data_ptr(), dk_part.data_ptr(), da_part.data_ptr(),
-        dg_part.data_ptr(), B, S, H, dk, dv, chunk, bp.fwd.tile_v,
-        bp.tile_b, vec, torch.cuda.current_stream(q.device).cuda_stream)
+        *(ptr(t) for t in (q, k, v, log_decay, gate, initial_state, dy,
+                           dstate) + tuple(out)
+          + (rec, sp, ds, qs_part, r_part, dsd_part)),
+        B, S, H, dk, dv, chunk, vec, only,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssm_chunk_scan_bwd kernel launch failed: CUDA "
                            f"error {rc}")
-    ssm_chunk_scan_bwd.launches += 1
-    return dq, dk_, dv_, da, dg, dinit
+    return ws
+
+
+def bwd_passes(q, k, v, log_decay, gate, dy, dstate=None, *, chunk: int,
+               initial_state: Optional[torch.Tensor] = None):
+    """The backward's passes one at a time, on CUDA tensors that
+    :func:`ssm_chunk_scan_bwd` takes, for timing each on its own: one full
+    call fills a workspace, then returns (name, launch) for each pass of
+    ``BWD_PASSES``, each launching that pass alone on it.  Not counted in
+    ``ssm_chunk_scan_bwd.launches``."""
+    B, S, H, dk = q.shape
+    bp = plan(B, S, H, dk, v.shape[-1], chunk, backward=True)
+    ins = (q, k, v, log_decay, gate, dy, dstate, initial_state)
+    out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+           torch.empty_like(log_decay), torch.empty_like(gate),
+           None if initial_state is None else torch.empty_like(initial_state))
+    ws = _bwd_launch(bp, ins, out, chunk)
+    return [(name, (lambda i=i: _bwd_launch(bp, ins, out, chunk, ws, i)))
+            for i, name in enumerate(BWD_PASSES)]
 
 
 def on_shards(scan, q, k, v, log_decay, gate, *, chunk: int,

@@ -89,12 +89,9 @@ def main(argv=None) -> None:
         "K2 forward (rms_norm)": lambda k: "rms_norm" in k
         and "bwd" not in k,
         "K2 backward (rms_norm_bwd)": lambda k: "rms_norm_bwd" in k,
-        # K5's backward call recomputes with the forward's scores pass
-        # (counted as forward) and its scan in record mode (``true>``)
-        "K5 forward (ssm_chunk_scan)": lambda k: "ssm_s" in k
-        and "true>" not in k,
-        "K5 backward (ssm_chunk_scan_bwd)": lambda k: "ssm_bwd" in k
-        or ("ssm_s" in k and "true>" in k),
+        "K5 forward (ssm_chunk_scan)": lambda k: "ssm_s" in k,
+        # six device kernels a call
+        "K5 backward (ssm_chunk_scan_bwd)": lambda k: "ssm_bwd" in k,
         "GEMMs": lambda k: any(g in k.lower() for g in _GEMM),
         "elementwise": lambda k: "elementwise" in k,
         "reductions": lambda k: "reduce" in k.lower(),

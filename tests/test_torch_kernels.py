@@ -71,11 +71,14 @@ DECODE_CASES = [(1, 2, 1, 32, 64, 32), (2, 4, 2, 64, 128, 64),
 SSM_CASES = [(1, 32, 1, 8, 8, 16), (2, 64, 3, 16, 8, 16),
              (2, 128, 2, 64, 64, 128), (1, 48, 4, 32, 33, 16)]
 SSM_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
-# (B, S, H, dk, dv, chunk, initial state, final-state gradient): the
-# backward kernel's cases, every padded chunk (16 to 128) and backward dv
-# tile (64, 32, 16), zamba2's and xlstm's widths (dv 513: 33 tiles of 16),
-# and chunks short of their padded size (40 in 64, 100 in 128: the chunk
-# ops takes for a sequence shorter than 128)
+# (B, S, H, dk, dv, chunk, initial state, final-state gradient[, "decay"]):
+# the backward kernel's cases, every padded chunk (16 to 128), one and
+# several 64-wide dk and dv tiles, zamba2's and xlstm's widths (dv 513: a
+# 1-wide last tile), chunks short of their padded size (8 in 16, 40 in
+# 64, 100 in 128: the chunk ops takes for a sequence shorter than 128),
+# xlstm's widths over 8 chunks from an initial state, and "decay": log
+# decay <= -1 at every step, so that most of a chunk's pairs fall outside
+# the +-60 clip
 SSM_BWD_CASES = [(1, 32, 1, 8, 8, 16, False, False),
                  (2, 64, 3, 16, 8, 16, True, True),
                  (1, 48, 4, 32, 33, 16, False, True),
@@ -85,7 +88,10 @@ SSM_BWD_CASES = [(1, 32, 1, 8, 8, 16, False, False),
                  (1, 256, 4, 512, 513, 128, True, True),
                  (2, 384, 2, 64, 128, 128, True, True),
                  (2, 80, 3, 16, 24, 40, True, True),
-                 (1, 100, 2, 64, 128, 100, False, True)]
+                 (1, 100, 2, 64, 128, 100, False, True),
+                 (1, 64, 2, 8, 12, 8, True, True),
+                 (1, 1024, 4, 512, 513, 128, True, True),
+                 (2, 256, 4, 64, 128, 128, True, True, "decay")]
 # sliding window / rolling cases of the model function: (mode, window)
 MASKS = [("causal", 0), ("window", 24), ("rolling", 24)]
 # granite-34b's head layout (configs/granite_34b.py): 48 query heads over
@@ -1172,15 +1178,10 @@ class TestKernelsOnCard:
     def test_ssm_bwd_kernel(self, cuda, case):
         """K5's backward kernel against its plain version, every gradient
         within SSM_TOL's float32 1e-3 of its largest entry; a second call
-        repeats the first bit for bit (the tiles' parts are summed in a
-        fixed order)."""
-        B, S, H, dk, dv, chunk, init, dstate = case
-        args, s0 = self._ssm_on_card(cuda, (B, S, H, dk, dv, chunk), 21,
-                                     0.1 if init else None)
-        gen = torch.Generator(cuda).manual_seed(22)
-        dy = torch.randn((B, S, H, dv), device=cuda, generator=gen)
-        ds = (torch.randn((B, H, dk, dv), device=cuda, generator=gen)
-              if dstate else None)
+        repeats the first bit for bit (no atomics: every sum in a fixed
+        order)."""
+        args, s0, dy, ds = self._ssm_bwd_on_card(cuda, case)
+        chunk = case[5]
         before = ss.ssm_chunk_scan_bwd.launches
         got = ss.ssm_chunk_scan_bwd(*args, dy, ds, chunk=chunk,
                                     initial_state=s0)
@@ -1190,7 +1191,7 @@ class TestKernelsOnCard:
         assert ss.ssm_chunk_scan_bwd.launches == before + 2
         want = ss.ssm_chunk_scan_bwd_plain(*args, dy, ds, chunk=chunk,
                                            initial_state=s0)
-        assert (got[5] is None) == (not init)
+        assert (got[5] is None) == (not case[6])
         for name, x, x2, w in zip(("dq", "dk", "dv", "da", "dg", "ds0"),
                                   got, again, want):
             if w is None:
@@ -1198,6 +1199,46 @@ class TestKernelsOnCard:
             assert torch.equal(x, x2), name
             err = float((x - w).abs().max() / w.abs().max())
             assert err <= SSM_TOL["float32"], (name, err)
+
+    @pytest.mark.parametrize("case", SSM_BWD_CASES)
+    def test_ssm_bwd_launches_its_plan(self, cuda, case):
+        """A call runs exactly the plan's device kernels (one a pass), as
+        the profiler sees them."""
+        from torch.profiler import ProfilerActivity, profile
+        args, s0, dy, ds = self._ssm_bwd_on_card(cuda, case)
+        B, S, H, dk, dv, chunk = case[:6]
+        ss.ssm_chunk_scan_bwd(*args, dy, ds, chunk=chunk, initial_state=s0)
+        torch.cuda.synchronize()
+        one = torch.zeros(1, device=cuda)
+        for _ in range(3):        # a trace with no device activity: again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # a trace can miss its first device kernel: one before
+                one.add_(1)
+                torch.cuda.synchronize()
+                ss.ssm_chunk_scan_bwd(*args, dy, ds, chunk=chunk,
+                                      initial_state=s0)
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if kernels:
+                break
+        p = ss.plan(B, S, H, dk, dv, chunk, backward=True)
+        ours = [k for k in kernels if "ssm_bwd" in k]
+        assert len(ours) == p.launches == len(ss.BWD_PASSES), kernels
+        assert len(kernels) - len(ours) <= 1, kernels
+
+    def _ssm_bwd_on_card(self, cuda, case):
+        B, S, H, dk, dv, chunk, init, dstate = case[:8]
+        args, s0 = self._ssm_on_card(cuda, (B, S, H, dk, dv, chunk), 21,
+                                     0.1 if init else None)
+        if case[8:] == ("decay",):
+            args[3] = 2.0 * args[3] - 1.0
+            assert float(args[3].max()) <= -1.0
+        gen = torch.Generator(cuda).manual_seed(22)
+        dy = torch.randn((B, S, H, dv), device=cuda, generator=gen)
+        ds = (torch.randn((B, H, dk, dv), device=cuda, generator=gen)
+              if dstate else None)
+        return args, s0, dy, ds
 
     def test_ssm_grad_through_the_kernel(self, cuda):
         """Autograd on the card through K5's Function, against autograd of
@@ -1231,9 +1272,8 @@ class TestKernelsOnCard:
         B, S, H, dk, dv, chunk = case[:6]
         p = ss.plan(B, S, H, dk, dv, chunk, backward=True)
         fn = ss._lib().ssm_scan_bwd_plan_bytes
-        assert fn(chunk, dk, p.tile_b, 0) == p.bwd_smem
-        assert 4 * fn(chunk, dk, p.tile_b, 1) * B * H * (S // chunk) \
-            == p.record_bytes
+        assert tuple(fn(chunk, which) for which in range(4)) == p.smem
+        assert 4 * fn(chunk, 4) * B * H * (S // chunk) == p.record_bytes
 
     def _ssm_on_card(self, cuda, case, seed, init_scale=None):
         B, S, H, dk, dv, chunk = case

@@ -133,16 +133,19 @@ def test_grad_mode_on_cpu_is_autograd_of_plain():
         _close(g.numpy(), w.numpy(), name)
 
 
-# (B, S, H, dk, dv, chunk) -> (backward dv tile, tiles, shared memory a
-# block, backward records, chunk states, tiles' parts; bytes), from the
-# layouts in csrc/ssm_scan.cu (bwd_smem, bwd_record_floats): zamba2's
-# train shape, xlstm's widths, the smallest chunk
+# (B, S, H, dk, dv, chunk) -> (dk tiles, dv tiles, shared memory a block
+# of the record, state-products, dq/dk and dv passes, the chunks' records,
+# the states and state gradients of every chunk, the dk tiles' parts of
+# the per-step scalars; bytes), from the layouts in csrc/ssm_scan.cu
+# (bwd_*_smem, bwd_record_floats): zamba2's train shape, xlstm's widths,
+# the smallest chunk
 BWD_PLANS = {
-    (2, 4096, 32, 64, 128, 128): (32, 4, 206728, 137363456, 67108864,
-                                  545259520),
-    (1, 256, 4, 512, 513, 128): (16, 33, 215688, 536576, 8404992,
-                                 138682368),
-    (1, 32, 1, 8, 8, 16): (16, 1, 10376, 2432, 512, 2304),
+    (2, 4096, 32, 64, 128, 128): (1, 2, (112128, 35840, 38432, 29696),
+                                  274726912, 134217728, 2105344),
+    (1, 256, 4, 512, 513, 128): (8, 9, (112128, 35840, 38432, 29696),
+                                 1073152, 16809984, 65792),
+    (1, 32, 1, 8, 8, 16): (1, 1, (10432, 34944, 20064, 11328), 4864, 1024,
+                           264),
 }
 
 
@@ -152,26 +155,30 @@ class TestBwdPlan:
         p = ss.plan(*shape, backward=True)
         assert isinstance(p, ss.BwdPlan)
         assert p.fwd == ss.plan(*shape)
-        assert tuple(p)[1:] == BWD_PLANS[shape]
-        assert p.bwd_smem <= 232448
+        assert tuple(p)[1:-1] == BWD_PLANS[shape]
+        assert p.launches == len(ss.BWD_PASSES) == 6
+        assert max(p.smem) <= 232448
 
-    def test_tile_never_wider_than_the_chunk(self):
-        """The k dS accumulator reuses a chunk-wide buffer, so the tile is
-        at most the padded chunk."""
-        assert ss.plan(1, 32, 1, 8, 64, 16, backward=True).tile_b == 16
-        assert ss.plan(1, 64, 1, 8, 64, 32, backward=True).tile_b == 32
-        assert ss.plan(1, 64, 1, 8, 64, 64, backward=True).tile_b == 64
+    def test_tiles_cover_the_state(self):
+        """dq/dk blocks take 64-wide dk tiles and dv blocks 64-wide dv
+        tiles, so each output element has one block; at zamba2's widths
+        two blocks of every pass fit an SM's 228 KB of shared memory, and
+        the workspace stays under the 749.7 MB the per-dv-tile design
+        took at zamba2's train shape."""
+        p = ss.plan(1, 64, 1, 65, 129, 64, backward=True)
+        assert (p.dk_tiles, p.dv_tiles) == (2, 3)
+        p = ss.plan(2, 4096, 32, 64, 128, 128, backward=True)
+        assert all(2 * (sm + 1024) <= 233472 for sm in p.smem)
+        assert p.record_bytes + p.states_bytes + p.parts_bytes <= 749.7e6
 
-    def test_refuses_what_does_not_fit(self, monkeypatch):
-        """The backward's block needs less shared memory than the forward's
-        scan block at every chunk, so a shape the forward refuses is the
-        first refusal; with the 64-wide tile alone, xlstm's dk = 512 at
-        chunk 128 does not fit the backward, which says so."""
+    def test_refuses_what_does_not_fit(self):
+        """A shape the forward refuses is refused first (its scan block's
+        shared memory, the chunk); the backward refuses a grid it cannot
+        launch, before anything is allocated."""
         with pytest.raises(ValueError, match="shared memory"):
             ss.plan(1, 128, 1, 2048, 8, 128, backward=True)
         with pytest.raises(ValueError, match="chunk"):
             ss.plan(1, 64, 1, 8, 8, 129, backward=True)
-        monkeypatch.setattr(ss, "TILES_B", (64,))
-        assert ss.plan(1, 128, 1, 512, 513, 128).tile_v == 32
-        with pytest.raises(ValueError, match="backward"):
-            ss.plan(1, 128, 1, 512, 513, 128, backward=True)
+        assert ss.plan(2 ** 31, 16, 1, 8, 8, 16).cp == 16
+        with pytest.raises(ValueError, match="backward kernel"):
+            ss.plan(2 ** 31, 16, 1, 8, 8, 16, backward=True)
