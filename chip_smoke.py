@@ -39,7 +39,8 @@ result line):
    xlstm's (H=4, dk=512, dv=513), at a ragged S that
    ``ops.ssm_chunk_scan`` pads, at xlstm's widths over four chunks
    from a nonzero initial state and at both families' widths with the
-   chunk of 128 that a prefill of 128 tokens or more gets, held against
+   chunk of 128 that a prefill of 128 tokens or more gets and at
+   zamba2's train shape (B=2, S=4096, chunk 128), held against
    its plain version at 1e-3 (y and the final state); each case also
    times its scores pass alone and prints its share of the bound.  K5's
    backward (``ssm_chunk_scan_bwd``) at zamba2's train shape (B=2,
@@ -100,7 +101,15 @@ result line):
    at chunk 128): the card's (K5 and its backward) within 1e-4 of each
    leaf's largest entry of the card's with K5's plain version, and of the
    CPU's beyond that control's own distance from it; K5's backward
-   launched.
+   launched.  Training on qwen3-moe-30b-a3b-smoke,
+   llava-next-mistral-7b-smoke and whisper-tiny-smoke (float32, 4 x 64
+   tokens, seeded normal patches or frames) as on granite-8b-smoke: one
+   gradient within 1e-4, five steps' losses within 1e-5 relative and
+   parameters within 1e-4, K2 and its backward launched; the MoE router's
+   smallest top-k gap over the CPU runs at least 1e-5 before anything is
+   compared (else the next batch seed); and ``python -m
+   repro_torch.launch.train --arch A --smoke --steps 2`` on the card for
+   the three archs (the launcher's zero stubs).
 5. The single-engine path: ``repro_torch.launch.serve`` on full
    granite-8b (36 layers, bf16, seeded random weights), paged backend,
    bfio_h8, 4 workers x 8 slots, 32 requests of 16 new tokens.  Launch
@@ -176,7 +185,20 @@ result line):
    before and read just after: K5 at least 64 and its backward at least
    32 launches a step, K2 and its backward on every norm.  Prints the
    mean step ms, the peak memory and the model FLOPs' share.
-11. The mesh train path: full-width granite-8b cut to 2 layers under the
+11. The MoE, vlm and audio train paths (``phase_train_path_family``),
+   written as the zamba2 path: qwen3-moe-30b-a3b at full width cut to 4
+   of 48 layers (3.115 B parameters, 0.850 B active; the router, aux loss
+   and capacity dispatch and their autograd backward), llava-next-
+   mistral-7b cut to 8 of 32 layers (the projector on seeded normal
+   patches) and whisper-tiny whole (batch 16: the encoder on seeded normal
+   frames, the plain float32 cross attention), each 4 steps of
+   ``train`` at 4,096 tokens a row, remat, the launcher's AdamW.  One
+   gradient first (every leaf finite, nonzero where the smoke config's
+   CPU gradient is); counters zeroed just before and read just after: K2
+   and its backward at least once a norm site a step (the encoder's
+   included), no K1, K3, K4, K5 or K5 backward.  Each prints the mean
+   step ms, the peak memory and the model FLOPs' share, and its seconds.
+12. The mesh train path: full-width granite-8b cut to 2 layers under the
    (1, 1) NCCL mesh, placed by ``param_shardings(mode="train")``; one
    step of ``make_train_step(mesh=..., grad_shardings=...,
    act_spec=...)`` against ``mesh=None`` on the same weights and batch
@@ -186,13 +208,15 @@ result line):
    card under its (1, 1) mesh, as a subprocess.
 
 ``python3 chip_smoke.py --phase NAME ...`` runs one or more of ``mesh``,
-``ssm``, ``ssm_bwd``, ``cross_train_ssm``, ``train_zamba2`` and
+``ssm``, ``ssm_bwd``, ``cross_train_ssm``, ``cross_train_families``,
+``train_zamba2``, ``train_moe``, ``train_vlm``, ``train_audio`` and
 ``mesh_train`` alone after the build (no result line).
 
 The second-to-last line is ``{"kernels": [...]}`` (each kernel's launches
 by path under ``launches_by_path``: engine, moe, vlm, fleet, the four
 slot paths, ``slot_granite_ref``, ``mesh``, ``device_loop``, ``train``,
-``train_zamba2`` and ``mesh_train``; the serving paths must launch no
+``train_zamba2``, ``train_moe``, ``train_vlm``, ``train_audio`` and
+``mesh_train``; the serving paths must launch no
 ``rms_norm_bwd`` and no ``ssm_chunk_scan_bwd``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is disabled for matmuls and
 cuDNN so float32 comparisons are float32.
@@ -1067,8 +1091,10 @@ _SSM_KEYS = ("shape", "ms", "scores_ms", "plain_ms", "bound_ms", "bound_by",
 def phase_ssm_scan(dev, flush):
     """K5 at zamba2's prefill shape (the row's numbers), xlstm's mLSTM
     shape, a ragged S, xlstm's widths over four chunks from a nonzero
-    initial state, and both families at the chunk of 128 the models pass
-    for a prefill of 128 tokens or more."""
+    initial state, both families at the chunk of 128 the models pass
+    for a prefill of 128 tokens or more, and zamba2's train shape (B=2,
+    S=4096, chunk 128), which its train path calls 64 times a step (32
+    Mamba2 blocks, forward and remat pass)."""
     cases = [
         _ssm_case(dev, flush, 32, 64, 32, 64, 128, 64, seed=31),
         _ssm_case(dev, flush, 32, 64, 4, 512, 513, 64, seed=32),
@@ -1076,6 +1102,7 @@ def phase_ssm_scan(dev, flush):
         _ssm_case(dev, flush, 8, 256, 4, 512, 513, 64, seed=34, init=True),
         _ssm_case(dev, flush, 32, 256, 32, 64, 128, 128, seed=35),
         _ssm_case(dev, flush, 32, 256, 4, 512, 513, 128, seed=36),
+        _ssm_case(dev, flush, 2, 4096, 32, 64, 128, 128, seed=37),
     ]
     for c in cases:
         print(f"kernel ssm_chunk_scan [{c['shape']}]: {c['ms'] * 1e3:.2f} us"
@@ -2044,6 +2071,133 @@ def phase_cross_device_train_ssm(dev):
     return out
 
 
+class _RouterGaps:
+    """While open, records the smallest gap between the k-th and the
+    (k+1)-th router probability over the tokens of every ``router_topk``
+    call (every layer, step and remat pass): a gap near float32 rounding
+    lets two devices pick different experts."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.gaps, self._inner = [], moe.router_topk
+
+        def recorded(x, w_router, k):
+            out = self._inner(x, w_router, k)
+            top = torch.sort(out[0].detach(), dim=-1, descending=True).values
+            self.gaps.append(float((top[..., k - 1] - top[..., k]).min()))
+            return out
+        moe.router_topk = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.router_topk = self._inner
+
+
+CROSS_FAMILIES = ("qwen3-moe-30b-a3b", "llava-next-mistral-7b",
+                  "whisper-tiny")
+
+
+def phase_cross_device_train_families(dev) -> tuple[list, float]:
+    """Training on the MoE, vlm and audio smoke configs, float32 weights
+    and compute, as ``phase_cross_device_train`` holds granite-8b-smoke:
+    the same weights (the port's seeded init, through numpy and
+    ``params_from_numpy``) and batches (4 x 64 tokens, seeded normal
+    patches or frames, ``_family_batches``) on the CPU (plain norms) and
+    the card (K2 and its backward).  One gradient within 1e-4 of each
+    leaf's largest entry (the vlm projector's included: the patches are
+    written into the embedding in place); five steps of ``train`` (default
+    AdamW): loss histories within 1e-5 relative, every parameter within
+    1e-4.  For the MoE config the CPU runs record the router's smallest
+    top-k gap over every layer, step and remat pass, and it must be at
+    least 1e-5 before anything is compared; a batch seed under that is
+    drawn again (capacity couples a batch's rows, so one token's other
+    expert can move the rest).  Then ``python -m repro_torch.launch.train
+    --arch A --smoke --steps 2`` for the three archs on the card, as
+    subprocesses started first and joined at the end (the launcher's zero
+    stubs for patches and frames).  Returns a row an arch and the phase's
+    seconds."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    launchers = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--smoke", "--steps", "2"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for arch in CROSS_FAMILIES}
+    try:
+        out = [_cross_device_train_one(dev, arch) for arch in CROSS_FAMILIES]
+        for (arch, p), row in zip(launchers.items(), out):
+            so, se = p.communicate(timeout=300)
+            check(p.returncode == 0 and "[train] done: loss" in so,
+                  f"launch.train --arch {arch} --smoke on the card failed "
+                  f"({p.returncode}): {so[-2000:]}{se[-2000:]}")
+            row["launcher"] = so.strip().splitlines()[-1]
+    finally:
+        for p in launchers.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out, time.perf_counter() - t0
+
+
+def _cross_device_train_one(dev, arch: str) -> dict:
+    """One arch of :func:`phase_cross_device_train_families`."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, params_from_numpy
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.training import train
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    weights = tree_map(lambda t: t.numpy(), init_params(cfg, 0,
+                                                        device="cpu"))
+
+    def run(d, batches):
+        p = params_from_numpy(weights, device=d)
+        tb = {k: torch.from_numpy(v).to(d) for k, v in batches[0].items()}
+        f0, b0 = _launch_counts()
+        _, g = _value_and_grads(cfg, p, tb, torch.float32)
+        f1, b1 = _launch_counts()
+        if d != "cpu":
+            torch.cuda.synchronize()
+            check(f1 > f0 and b1 > b0, f"cross-device train {cfg.name}: the "
+                  f"card's gradient did not run K2 and its backward")
+        p, losses = train(cfg, params=params_from_numpy(weights, device=d),
+                          batches=batches, log_every=0,
+                          compute_dtype="float32")
+        return g, p, losses
+    gap = None
+    for seed in range(7, 27):
+        batches = _family_batches(cfg, 4, 64, 5, seed=seed)
+        with _RouterGaps() as rec:
+            g_cpu, p_cpu, l_cpu = run("cpu", batches)
+        if not cfg.is_moe:
+            break
+        gap = min(rec.gaps)
+        if gap >= 1e-5:
+            break
+    else:
+        fail(f"cross-device train {cfg.name}: no batch seed in 7..26 keeps "
+             f"the router's top-k gap at 1e-5 or more")
+    g_dev, p_dev, l_dev = run(dev, batches)
+    grad_err = 0.0
+    for a, b in zip(g_cpu, g_dev):
+        check(a is not None and b is not None,
+              f"cross-device train {cfg.name}: a leaf got no gradient")
+        grad_err = max(grad_err, float((a - b.cpu()).abs().max())
+                       / max(float(a.abs().max()), 1e-30))
+    check(grad_err <= 1e-4, f"cross-device train {cfg.name}: gradients "
+                            f"differ by {grad_err:.3e} of a leaf's largest "
+                            f"entry")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_dev))
+    check(rel <= 1e-5, f"cross-device train {cfg.name}: loss histories "
+                       f"{l_cpu} and {l_dev} differ by {rel:.3e} relative")
+    perr = max(float((a - b.cpu()).abs().max())
+               for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_dev)))
+    check(perr <= 1e-4, f"cross-device train {cfg.name}: parameters after "
+                        f"5 steps differ by {perr:.3e}")
+    return dict(name=cfg.name, seed=seed, gap=gap, grad_err=grad_err,
+                losses=l_dev, rel=rel, param_err=perr)
+
+
 def _launch_counts() -> tuple[int, int]:
     from repro_torch.kernels import rms_norm as rk
     return rk.rms_norm.launches, rk.rms_norm_bwd.launches
@@ -2272,6 +2426,145 @@ def phase_train_path_ssm(card: str) -> dict:
           f"(6 N D, N = {cfg.active_params() / 1e9:.3f} B, D = "
           f"{ZTRAIN_BATCH} x {ZTRAIN_SEQ}), {share:.1%} of 989 TFLOP/s "
           f"bf16; launches {launches} [{card}]")
+    del params, batches
+    _free()
+    return launches
+
+
+# the MoE, vlm and audio train paths: arch, depth (0: not cut), batch
+FAMILY_TRAIN = {"train_moe": ("qwen3-moe-30b-a3b", 4, 2),
+                "train_vlm": ("llava-next-mistral-7b", 8, 2),
+                "train_audio": ("whisper-tiny", 0, 16)}
+FTRAIN_SEQ, FTRAIN_STEPS = 4096, 4
+# kernels no train path of these families may launch
+_SERVING_KERNELS = ("paged_decode_attention", "decode_attention",
+                    "bfio_swap", "ssm_chunk_scan", "ssm_chunk_scan_bwd")
+
+
+def _family_batches(cfg, batch: int, seq: int, n: int, seed: int) -> list:
+    """``token_batches`` with seeded normal ``patches`` (vlm: batch x
+    patch_tokens x d) or ``frames`` (audio: batch x encoder_seq x d),
+    float32, so the projector and the encoder train.  Numpy arrays."""
+    from repro_torch.data import token_batches
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in token_batches(vocab_size=cfg.vocab_size, batch=batch,
+                           seq_len=seq, n_batches=n, seed=seed):
+        if cfg.family == "vlm":
+            b["patches"] = rng.normal(size=(
+                batch, cfg.patch_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            b["frames"] = rng.normal(size=(
+                batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def phase_train_path_family(key: str, card: str) -> dict:
+    """A train path of the MoE, vlm or audio family (``FAMILY_TRAIN[key]``):
+    ``repro_torch.training.train`` on the full-width configuration, its
+    depth cut as given (float32 masters, AdamW m and v, float32 gradients
+    and the bf16 compute copy: ~18 bytes a parameter), seeded random
+    weights, batch x FTRAIN_SEQ tokens (``_family_batches``: seeded normal
+    patches or frames), FTRAIN_STEPS steps, remat a layer, the launcher's
+    AdamW.  qwen3-moe-30b-a3b at 4 of 48 layers (router, aux loss and the
+    capacity dispatch and their autograd backward), llava-next-mistral-7b
+    at 8 of 32 (the projector), whisper-tiny whole at batch 16 (the
+    bidirectional encoder, the plain float32 cross attention).  First one
+    gradient: every leaf finite, and nonzero wherever the smoke config's
+    float32 CPU gradient is nonzero for a leaf of the same kind.  Counters
+    zeroed just before the training and read just after: K2 and its
+    backward at least once a norm site a step (audio: the encoder's
+    included), and none of K1, K3, K4, K5 or K5's backward.  Prints each
+    step's loss, the mean step ms (steps after the first), the peak
+    memory and the model FLOPs' share of 989 TFLOP/s."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.roofline import H100, analytic_flops
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamWConfig, train
+    arch, layers, batch = FAMILY_TRAIN[key]
+    scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    sp = init_params(scfg, 0, device="cpu")
+    sb = {k: torch.from_numpy(v) for k, v in _family_batches(
+        scfg, 2, 64, 1, seed=9)[0].items()}
+    _, sg = _value_and_grads(scfg, sp, sb, torch.float32)
+    live = {kind for kind, g in zip(_leaf_kinds(sp), sg)
+            if g is not None and float(g.abs().max()) > 0}
+    del sp, sg
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    sites = _stack_counts(cfg)
+    norms = sites["norm"] + sites["enc_norm"]
+    t0 = time.perf_counter()
+    params = init_params(dataclasses.replace(cfg, dtype="float32"), 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = _numel(params)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in _family_batches(cfg, batch, FTRAIN_SEQ,
+                                        FTRAIN_STEPS, seed=0)]
+    before = _zero_and_read(None)
+    loss, grads = _value_and_grads(cfg, params, batches[0])
+    torch.cuda.synchronize()
+    one = _zero_and_read(before)
+    kinds = _leaf_kinds(params)
+    check(len(kinds) == len(grads), f"{key} path: leaf count")
+    bad = [k for k, g in zip(kinds, grads)
+           if g is None or not torch.isfinite(g).all().item()
+           or (k in live and not g.abs().max().item() > 0)]
+    check(not bad and bool(torch.isfinite(loss)),
+          f"{key} path: leaves with a non-finite gradient, or zero where "
+          f"the smoke config's is not: {bad[:8]} (loss {float(loss)})")
+    check(one["rms_norm"] >= norms and one["rms_norm_bwd"] >= norms,
+          f"{key} path: one gradient launched K2 {one['rms_norm']} and its "
+          f"backward {one['rms_norm_bwd']} times, need >= {norms} each")
+    cut = f"cut to {cfg.n_layers} layers" if layers else "not cut"
+    print(f"{key} path: {cfg.name} {cut}, {n_par / 1e9:.3f} B parameters "
+          f"(float32 masters), {cfg.active_params() / 1e9:.3f} B active, "
+          f"init {init_s:.2f} s; one gradient: loss {float(loss):.4f}, all "
+          f"{len(grads)} leaves finite, nonzero where the smoke config's "
+          f"are ({len(live)} kinds); launches {one} [{card}]")
+    del loss, grads
+    _free()
+    stamps = []
+
+    def log_fn(msg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    n = FTRAIN_STEPS
+    opt = AdamWConfig(lr=3e-4, warmup_steps=min(20, n // 5), total_steps=n)
+    launches = _zero_and_read(None)
+    t0 = time.perf_counter()
+    params, losses = train(cfg, params=params, batches=batches, opt_cfg=opt,
+                           log_every=1, log_fn=log_fn)
+    launches = _zero_and_read(launches)
+    check(len(losses) == n and all(np.isfinite(losses)),
+          f"{key} path: losses {losses}")
+    check(launches["rms_norm"] >= norms * n
+          and launches["rms_norm_bwd"] >= norms * n
+          and not any(launches[k] for k in _SERVING_KERNELS),
+          f"{key} path: launches {launches} over {n} steps, need K2 and its "
+          f"backward >= {norms * n} each and no other kernel")
+    steps_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    mean_ms = float(np.mean(steps_ms[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=batch,
+                                seq_len=FTRAIN_SEQ)
+    flops = analytic_flops(cfg, shape)
+    share = flops["model_flops"] / (mean_ms / 1e3 * H100.peak_flops)
+    for i, (lo, ms) in enumerate(zip(losses, steps_ms)):
+        print(f"{key} path step {i}: loss {lo:.4f}, {ms:.1f} ms [{card}]")
+    print(f"{key} path MEASURED on {torch.cuda.get_device_name(0)}: "
+          f"{cfg.name} {cut}, mean step {mean_ms:.1f} ms (steps "
+          f"1..{n - 1}), peak memory {peak:.2f} GB; model FLOPs a step "
+          f"{flops['model_flops']:.4e} (6 N D, N = "
+          f"{cfg.active_params() / 1e9:.3f} B active, D = {batch} x "
+          f"{FTRAIN_SEQ}), {share:.1%} of 989 TFLOP/s bf16; launches "
+          f"{launches} [{card}]")
     del params, batches
     _free()
     return launches
@@ -2753,7 +3046,11 @@ def main() -> None:
                  "cross_train_ssm": lambda: phase_cross_device_train_ssm(
                      dev),
                  "train_zamba2": lambda: phase_train_path_ssm(card),
-                 "mesh_train": lambda: phase_mesh_train_path(dev, card)}
+                 "mesh_train": lambda: phase_mesh_train_path(dev, card),
+                 "cross_train_families":
+                     lambda: phase_cross_device_train_families(dev),
+                 **{k: (lambda k=k: phase_train_path_family(k, card))
+                    for k in FAMILY_TRAIN}}
         for name in sys.argv[2:]:
             check(name in quick, f"unknown phase {name}")
             print(json.dumps({name: quick[name]()}, default=str))
@@ -2833,6 +3130,19 @@ def main() -> None:
               f"card's with K5's plain version and within {vs_cpu:.3e} of "
               f"the CPU's (that control {ctl_cpu:.3e} from the CPU's); K5's"
               f" backward {n_bwd} launches on the card [{card}]")
+    rows, secs = phase_cross_device_train_families(dev)
+    for r in rows:
+        gap = "" if r["gap"] is None else (
+            f"; the router's smallest top-k gap on the cpu {r['gap']:.3e} "
+            f"(>= 1e-5, batch seed {r['seed']})")
+        print(f"cross-device train: {r['name']} f32, 4 x 64 tokens, one "
+              f"gradient within {r['grad_err']:.3e} of each leaf's largest "
+              f"entry; 5 steps of train, losses "
+              f"{['%.6f' % x for x in r['losses']]} within {r['rel']:.3e} "
+              f"relative, parameters within {r['param_err']:.3e}{gap}; "
+              f"launch.train --smoke --steps 2 on the card: "
+              f"{r['launcher']} [{card}]")
+    print(f"cross-device train families: {secs:.1f} s")
 
     paths = {"engine": phase_paged_path("granite-8b", "main path")}
     paths["moe"] = phase_paged_path("qwen3-moe-30b-a3b", "moe path")
@@ -2848,10 +3158,14 @@ def main() -> None:
                   "mesh": phase_mesh_path(dev, card),
                   "device_loop": phase_device_loop_path(),
                   "train": phase_train_path(card),
-                  "train_zamba2": phase_train_path_ssm(card),
-                  "mesh_train": phase_mesh_train_path(dev, card)})
+                  "train_zamba2": phase_train_path_ssm(card)})
+    for key in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        paths[key] = phase_train_path_family(key, card)
+        print(f"{key} path: {time.perf_counter() - t0:.1f} s")
+    paths["mesh_train"] = phase_mesh_train_path(dev, card)
 
-    train_paths = ("train", "train_zamba2", "mesh_train")
+    train_paths = ("train", "train_zamba2", *FAMILY_TRAIN, "mesh_train")
     for p, counts in paths.items():
         check(p in train_paths or counts["rms_norm_bwd"]
               == counts["ssm_chunk_scan_bwd"] == 0,

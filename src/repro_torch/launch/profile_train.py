@@ -6,13 +6,19 @@ Builds the train path of ``chip_smoke.py``: the full-width configuration
 with its depth cut to ``--layers`` (0 keeps it whole: ``--arch
 zamba2-1.2b --layers 0`` is the hybrid train path), float32 master
 weights from the port's seeded init, bfloat16 compute, remat a layer,
-AdamW; runs one step to warm up, then records ``--profile-steps`` steps
+AdamW, and the training launcher's batches (``launch.train.train_batches``:
+the vlm projector's ``patches`` and the audio encoder's ``frames`` as zero
+stubs);
+runs one step to warm up, then records ``--profile-steps`` steps
 of ``make_train_step`` with ``torch.profiler`` and prints: the steps'
 wall time (host clock, each step ends in a device sync), the device's
 busy time (the sum of kernel times), the idle share, the device kernels
 a step, the RMS-norm kernel's (K2's) and the chunked scan's (K5's) and
-their backwards' launches and time, the shares of the GEMMs and of PyTorch's elementwise and reduction
-kernels, and the kernels that take the most device time.
+their backwards' launches and time, the shares of the GEMMs, of PyTorch's
+elementwise and reduction kernels and of its scans (the MoE capacity
+count's cumsum), index kernels (the MoE dispatch's gathers and their
+backward; ``index_elementwise_kernel`` is also in "elementwise") and
+sorts (the MoE router's), and the kernels that take the most device time.
 ``--chrome-trace PATH`` writes the Chrome trace.  It needs a card.
 """
 from __future__ import annotations
@@ -25,10 +31,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
-from ..data import token_batches
 from ..models import init_params
 from ..training import AdamWConfig, init_opt_state, make_train_step
 from .profile_decode import _device_us
+from .train import train_batches
 
 __all__ = ["main"]
 
@@ -56,8 +62,8 @@ def main(argv=None) -> None:
     opt = init_opt_state(params)
     step = make_train_step(cfg, AdamWConfig(), donate=True)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
-               for b in token_batches(vocab_size=cfg.vocab_size,
-                                      batch=args.batch, seq_len=args.seq,
+               for b in train_batches(cfg, batch=args.batch,
+                                      seq_len=args.seq,
                                       n_batches=args.profile_steps + 1)]
     loss, params, opt = step(params, opt, batches[0])
     torch.cuda.synchronize()
@@ -95,6 +101,9 @@ def main(argv=None) -> None:
         "GEMMs": lambda k: any(g in k.lower() for g in _GEMM),
         "elementwise": lambda k: "elementwise" in k,
         "reductions": lambda k: "reduce" in k.lower(),
+        "scans (cumsum)": lambda k: "scan" in k.lower() and "ssm" not in k,
+        "index (gather, index_put)": lambda k: "index" in k.lower(),
+        "sorts": lambda k: "sort" in k.lower(),
     }
     for name, hit in groups.items():
         sel = [e for e in kernels if hit(e.key)]

@@ -34,7 +34,7 @@ from ..models import init_params, resolve_device
 from ..training import AdamWConfig, train
 from .mesh import _make_mesh, make_cpu_mesh, make_production_mesh, mesh_shape
 
-__all__ = ["build_parser", "main", "make_train_mesh"]
+__all__ = ["build_parser", "main", "make_train_mesh", "train_batches"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,6 +51,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--multi-pod", action="store_true")
     return ap
+
+
+def train_batches(cfg, *, batch: int, seq_len: int, n_batches: int,
+                  seed: int = 0):
+    """``token_batches`` with the reference launcher's stubs for the
+    inputs a model family adds: ``patches`` (batch, patch_tokens, d) for
+    vlm and ``frames`` (batch, encoder_seq, d) for audio, float32 zeros.
+    A generator of dicts of numpy arrays."""
+    for b in token_batches(vocab_size=cfg.vocab_size, batch=batch,
+                           seq_len=seq_len, n_batches=n_batches, seed=seed):
+        if cfg.family == "vlm":
+            b["patches"] = np.zeros((batch, cfg.patch_tokens, cfg.d_model),
+                                    np.float32)
+        if cfg.family == "audio":
+            b["frames"] = np.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                   np.float32)
+        yield b
 
 
 def _start_group(device) -> None:
@@ -106,24 +123,11 @@ def main(argv=None) -> list[float]:
         print(f"[train] {cfg.name}: {cfg.n_params()/1e6:.1f}M params, "
               f"device {device}, mesh {mesh_shape(mesh)}")
         params = init_params(cfg, 0, device=device)
-
-        def batches():
-            for b in token_batches(vocab_size=cfg.vocab_size,
-                                   batch=args.batch, seq_len=args.seq,
-                                   n_batches=args.steps):
-                if cfg.family == "vlm":
-                    b["patches"] = np.zeros(
-                        (args.batch, cfg.patch_tokens, cfg.d_model),
-                        np.float32)
-                if cfg.family == "audio":
-                    b["frames"] = np.zeros(
-                        (args.batch, cfg.encoder_seq, cfg.d_model),
-                        np.float32)
-                yield b
-
         opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                           total_steps=args.steps)
-        _, losses = train(cfg, params=params, batches=batches(),
+        batches = train_batches(cfg, batch=args.batch, seq_len=args.seq,
+                                n_batches=args.steps)
+        _, losses = train(cfg, params=params, batches=batches,
                           opt_cfg=opt, mesh=mesh, ckpt_dir=args.ckpt_dir,
                           ckpt_every=max(args.steps // 2, 1)
                           if args.ckpt_dir else 0)

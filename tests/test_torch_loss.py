@@ -1,7 +1,9 @@
 """The port's training loss (``repro_torch.models.loss_fn``) and its
 pieces against the reference, on the CPU in float32.
 
-For one smoke config of each of the six families, the reference's
+For one smoke config of each of the six families, and for the other
+four archs (granite-34b's one KV head, minitron-4b, qwen2-72b's QKV
+biases, granite-moe-3b-a800m), the reference's
 weights carried over with ``params_from_numpy``: the loss value and its
 gradient on every leaf, the port's by autograd (each block under
 ``torch.utils.checkpoint``), the reference's by ``jax.value_and_grad``
@@ -42,7 +44,8 @@ from repro_torch.models import layers, loss_fn, params_from_numpy
 from repro_torch.models import transformer as tf
 
 ARCHS = ["granite-8b", "qwen3-moe-30b-a3b", "xlstm-350m", "zamba2-1.2b",
-         "llava-next-mistral-7b", "whisper-tiny"]
+         "llava-next-mistral-7b", "whisper-tiny", "granite-34b",
+         "minitron-4b", "qwen2-72b", "granite-moe-3b-a800m"]
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 B, S = 2, 24
