@@ -168,7 +168,20 @@ result line):
    completes with no preemption, K4 launches ``swap_iters`` (4) times a
    step, and PyTorch's sync debug mode sees no host read inside a step
    (it is shown to see a known one first).  Prints the mean ms a step,
-   the device kernels of one profiled step and the average imbalance.
+   the device operations of one profiled step op by op and of one
+   replayed step, and the average imbalance.
+   The capture phase (``phase_capture``): every serving path above (the
+   launcher's configurations of phases 5-7: paged granite-8b, qwen3-moe-
+   30b-a3b and llava-next-mistral-7b, the four slot paths and the ref
+   engine, and the fleet of phase 6) and the device loop (16 steps at
+   phase 8's width) run captured and under ``graphs.eager()`` in turns
+   from the same seed: stats, generations and launch counts (the loop's
+   ``LoopState`` field by field and its K4 launches) equal, every replay
+   (the copy of its inputs and the graph's launch) under sync debug
+   ``"error"``.  Prints each path's decode-step ms (the fleet's step and
+   router-solve ms, the loop's step ms) both ways with the peak memory,
+   and ``launch/profile_decode.py``'s idle share on captured paged
+   granite-8b.
 9. The train path: ``repro_torch.training.train`` on full-width
    granite-8b cut to 8 of its 36 layers (float32 masters, bf16 compute,
    AdamW, remat a layer), batch 2 x 4096, 4 steps of ``token_batches``.
@@ -207,10 +220,15 @@ result line):
    repro_torch.launch.train --arch granite-8b --smoke --steps 2`` on the
    card under its (1, 1) mesh, as a subprocess.
 
+On the card every serving path, the router's solve and the device loop
+(without a KV pool) run as the port runs them there: each decode step a
+replayed CUDA graph per (backend, bucket), each solve one per padded
+shape, each loop step one graph (``repro_torch.core.graphs``).
+
 ``python3 chip_smoke.py --phase NAME ...`` runs one or more of ``mesh``,
 ``ssm``, ``ssm_bwd``, ``cross_train_ssm``, ``cross_train_families``,
-``train_zamba2``, ``train_moe``, ``train_vlm``, ``train_audio`` and
-``mesh_train`` alone after the build (no result line).
+``train_zamba2``, ``train_moe``, ``train_vlm``, ``train_audio``,
+``mesh_train`` and ``capture`` alone after the build (no result line).
 
 The second-to-last line is ``{"kernels": [...]}`` (each kernel's launches
 by path under ``launches_by_path``: engine, moe, vlm, fleet, the four
@@ -644,6 +662,7 @@ def _loop_swap_inputs() -> tuple:
     W=1; every wait entry valid, 512 of them placed by the greedy
     phase), recorded from a run of that step."""
     import repro_torch.core.balancer_jax as bj
+    from repro_torch.core import graphs
     from repro_torch.serving import init_loop_state, make_device_serving_loop
     sizes, rem = _loop_stream(192, 832, 0, integer=False)
     run = make_device_serving_loop(LOOP_G, LOOP_B, LOOP_W, swap_iters=1)
@@ -654,7 +673,8 @@ def _loop_swap_inputs() -> tuple:
         return inner(*args)
     bj.swap_best = record
     try:
-        run(init_loop_state(LOOP_G, LOOP_B, sizes, rem, LOOP_W), 1)
+        with graphs.eager():    # the real inputs, not a capture's
+            run(init_loop_state(LOOP_G, LOOP_B, sizes, rem, LOOP_W), 1)
     finally:
         bj.swap_best = inner
     check(len(seen) == 1, f"device loop's first step ran {len(seen)} swap "
@@ -664,7 +684,8 @@ def _loop_swap_inputs() -> tuple:
 
 # the runtime calls that put an operation on the device
 _ISSUE_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-               "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+               "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+               "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def _issued_ops(fn) -> dict:
@@ -1827,6 +1848,7 @@ def phase_device_loop_path() -> dict:
     mean ms a step, the issued and recorded operations of the profiled
     step and the average imbalance a step; returns the kernels' launch
     counts."""
+    from repro_torch.core import graphs
     from repro_torch.serving import init_loop_state, make_device_serving_loop
     G, B, W, swap_iters, chunk = LOOP_G, LOOP_B, LOOP_W, 4, 16
     dev = torch.device("cuda")
@@ -1836,13 +1858,19 @@ def phase_device_loop_path() -> dict:
     sizes, rem = _loop_stream(192, 832, 0, integer=False)
     run = make_device_serving_loop(G, B, W, swap_iters=swap_iters)
     state = init_loop_state(G, B, sizes, rem, W)
-    # the first step, profiled twice from the same state: the issued
-    # count must repeat, and the launch counter sees K4 swap_iters times
+    # the first step op by op, profiled twice from the same state: the
+    # issued count must repeat, and the launch counter sees K4 swap_iters
+    # times
     traces = []
     for _ in range(2):
         before = _zero_and_read(None)
-        traces.append(_issued_ops(lambda: run(state, 1)))
+        with graphs.eager():
+            traces.append(_issued_ops(lambda: run(state, 1)))
         traces[-1]["k4_counted"] = _zero_and_read(before)["bfio_swap"]
+    # the step's graph: captured here (run is functional: state is kept),
+    # then one replayed step profiled
+    run(state, 1)
+    replayed = _issued_ops(lambda: run(state, 1))
     launches = _zero_and_read(None)
     chunk_s, syncs = [], []
     while int(state.tot_steps) < 400:
@@ -1890,10 +1918,298 @@ def phase_device_loop_path() -> dict:
           f"({traces[0]['by_api']}) in each of two traces, of which the "
           f"device recorded {traces[0]['recorded']} and "
           f"{traces[1]['recorded']} (K4 {traces[0]['k4_recorded']} and "
-          f"{traces[1]['k4_recorded']}); {swap_iters} K4 launches a step "
+          f"{traces[1]['k4_recorded']}) op by op; one replayed step of the "
+          f"captured step graph issued {replayed['by_api']} and the device "
+          f"recorded {replayed['recorded']} operations (K4 "
+          f"{replayed['k4_recorded']}); {swap_iters} K4 launches a step "
           f"by the counter; average imbalance "
           f"{float(state.tot_imbalance) / steps:.2f} a step")
     return launches
+
+
+class _CheckedReplays:
+    """Inside the block every replay of a captured region (the copy of
+    its inputs into the static buffers and the graph's launch) runs under
+    PyTorch's sync debug mode ``"error"``, so a host read there raises;
+    ``n`` counts the replays so checked."""
+
+    def __enter__(self):
+        from repro_torch.core.graphs import Graphs
+        self._fill, self._replay = Graphs._fill, torch.cuda.CUDAGraph.replay
+        self.n = 0
+
+        def strict(fn):
+            def call(*a, **kw):
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+            return call
+
+        def replay(graph):
+            self.n += 1
+            return strict(self._replay)(graph)
+        Graphs._fill = strict(self._fill)
+        torch.cuda.CUDAGraph.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.graphs import Graphs
+        Graphs._fill, torch.cuda.CUDAGraph.replay = self._fill, self._replay
+        return False
+
+
+# the serving paths of phases 5-7: (key, arch, backend, requests, slots,
+# max_seq_len (0: the launcher's), engine_mode)
+CAPTURE_ENGINES = (
+    ("engine", "granite-8b", "paged", 32, 8, 0, "vec"),
+    ("slot_granite", "granite-8b", "slot", 32, 8, 0, "vec"),
+    ("slot_granite_ref", "granite-8b", "slot", 32, 8, 0, "ref"),
+    ("moe", "qwen3-moe-30b-a3b", "paged", 32, 8, 0, "vec"),
+    ("vlm", "llava-next-mistral-7b", "paged", 16, 2, 3072, "vec"),
+    ("slot_zamba2", "zamba2-1.2b", "slot", 32, 8, 0, "vec"),
+    ("slot_xlstm", "xlstm-350m", "slot", 8, 8, 0, "vec"),
+    ("slot_whisper", "whisper-tiny", "slot", 32, 8, 0, "vec"))
+
+
+def _counts() -> dict:
+    return {k: w.launches for k, w in _wrappers().items()}
+
+
+def _capture_engine_run(cfg, params, ec, policy: str, reqs: list,
+                        eager: bool) -> dict:
+    """One engine over ``reqs``, captured or (``eager``) op by op, each
+    step ended in a device sync: stats, generations, launch counts,
+    decode-only step times, peak memory, graphs captured and replays."""
+    from repro_torch.core import graphs, make_policy
+    from repro_torch.serving import ServingEngine
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, ec, make_policy(policy),
+                        device="cuda")
+    for r in reqs:
+        eng.submit(r)
+    c0 = _counts()
+    decode_s = []
+    with (graphs.eager() if eager else _CheckedReplays()) as chk:
+        while eng.wait or eng.table.active.any():
+            check(eng.steps < 10_000, f"{cfg.name}: engine did not finish")
+            ts = time.perf_counter()
+            info = eng.step()
+            torch.cuda.synchronize()
+            if info["phase"] == "decode":
+                decode_s.append(time.perf_counter() - ts)
+    c1 = _counts()
+    g = eng.backend.graphs
+    out = dict(stats=eng.stats(), gens=[list(r.generated) for r in reqs],
+               launches={k: c1[k] - c0[k] for k in c1},
+               mean_ms=1e3 * float(np.mean(decode_s)),
+               median_ms=1e3 * float(np.median(decode_s)),
+               steps=len(decode_s),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               captured=g.n_captured, replayed=g.n_replayed,
+               checked=0 if chk is None else chk.n)
+    del eng, g
+    _free()
+    return out
+
+
+def _capture_report(key, what, runs, card, unit="decode step"):
+    cap, eag = runs["captured"], runs["eager"]
+
+    def ms(r):
+        return (f"mean {r['mean_ms']:.2f}" if r["median_ms"] is None else
+                f"mean {r['mean_ms']:.2f} / median {r['median_ms']:.2f}")
+    print(f"capture {key}: {what}: stats, {sum(map(len, cap['gens']))} "
+          f"generated tokens and launches equal captured and eager; "
+          f"{cap['captured']} graphs captured, {cap['replayed']} replays, "
+          f"{cap['checked']} of them under sync debug 'error' (no host "
+          f"read); {unit} captured {ms(cap)} ms, eager {ms(eag)} ms "
+          f"({cap['steps']} steps each); "
+          f"peak memory captured {cap['peak_gb']:.2f} GB, eager "
+          f"{eag['peak_gb']:.2f} GB [{card}]")
+
+
+def _check_same(key, runs, fields=("stats", "gens", "launches")):
+    cap, eag = runs["captured"], runs["eager"]
+    for f in fields:
+        check(cap[f] == eag[f], f"capture {key}: {f} differ captured and "
+              f"eager: {str(cap[f])[:300]} vs {str(eag[f])[:300]}")
+    check(cap["captured"] > 0 and cap["replayed"] > 0
+          and cap["checked"] == cap["replayed"],
+          f"capture {key}: {cap['captured']} captures, {cap['replayed']} "
+          f"replays, {cap['checked']} checked")
+    check(eag["captured"] == eag["replayed"] == 0,
+          f"capture {key}: the eager run captured")
+
+
+def phase_capture(card: str) -> dict:
+    """Capture against ``graphs.eager()`` on every serving path (the
+    launcher's configurations of phases 5-7 and the fleet of phase 6) and
+    on the device loop, in turns from the same seed (the first path
+    captured first, the next eager first, and so on): stats, generations,
+    launch counts (and ``LoopState`` field by field) equal, every replay
+    under sync debug ``"error"``.  Prints each path's decode-step ms (the
+    fleet's step and router-solve ms, the loop's step ms) both ways with
+    the peak memory, and ``profile_decode``'s idle share on paged
+    granite-8b with capture."""
+    import contextlib
+    import io
+    from repro_torch.core import graphs
+    from repro_torch.launch import profile_decode
+    from repro_torch.launch.serve import (_engine_cfg, _synthetic,
+                                          build_parser, make_fleet,
+                                          make_model)
+    out, order = {}, ("captured", "eager")
+    arch_now, params = None, None
+    t_phase = time.perf_counter()
+    for i, (key, arch, backend, n, slots, max_seq, mode) in enumerate(
+            CAPTURE_ENGINES):
+        args = build_parser().parse_args(
+            ["--arch", arch, "--policy", "bfio_h8", "--cache-backend",
+             backend, "--workers", "4", "--slots", str(slots),
+             "--requests", str(n), "--max-new", "16", "--seed", "0"])
+        if arch != arch_now:
+            params = None
+            _free()
+            cfg, params, _ = make_model(args)
+            arch_now = arch
+        ec = _engine_cfg(args)
+        ec = dataclasses.replace(ec, engine_mode=mode,
+                                 max_seq_len=max_seq or ec.max_seq_len)
+
+        def reqs():
+            return (_vlm_prompts(cfg, n, 16, 0) if max_seq
+                    else _synthetic(cfg.vocab_size, n, 16, 0))
+        runs = {}
+        for m in (order if i % 2 == 0 else order[::-1]):
+            runs[m] = _capture_engine_run(cfg, params, ec, "bfio_h8",
+                                          reqs(), m == "eager")
+        _check_same(key, runs)
+        _capture_report(key, f"{arch} {backend}"
+                        + (" engine_mode=ref" if mode == "ref" else ""),
+                        runs, card)
+        out[key] = {m: {k: r[k] for k in ("mean_ms", "median_ms",
+                                          "peak_gb", "captured",
+                                          "replayed")}
+                    for m, r in runs.items()}
+    params = None
+    _free()
+
+    # the fleet: phase 6's launcher configuration
+    args = build_parser().parse_args(
+        ["--arch", "granite-8b", "--replicas", "4", "--workers", "4",
+         "--slots", "8", "--cache-backend", "paged", "--policy", "bfio_h0",
+         "--router", "bfio", "--scenario", "flash_crowd", "--requests",
+         "64", "--seed", "0"])
+    import repro_torch.core.balancer_jax as bj
+
+    def solve_replays():
+        return sum(g.n_replayed for g in bj._SOLVES.values())
+    cfg, params, device = make_model(args)
+    runs = {}
+    for m in order[::-1]:
+        built = make_fleet(args, cfg, params, device)
+        fleet = built["fleet"]
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        c0, s0 = _counts(), solve_replays()
+        step_s = []
+        with (graphs.eager() if m == "eager" else _CheckedReplays()) as chk:
+            while fleet.has_work():
+                check(fleet.steps < 100_000, "capture fleet: not finished")
+                ts = time.perf_counter()
+                fleet.step()
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - ts)
+        c1 = _counts()
+        solve = built["router"].seconds
+        runs[m] = dict(
+            stats=fleet.stats(), gens=[list(r.generated)
+                                       for r in fleet.requests],
+            launches={k: c1[k] - c0[k] for k in c1},
+            mean_ms=1e3 * float(np.mean(step_s)),
+            median_ms=1e3 * float(np.median(step_s)),
+            solve_ms=1e3 * float(np.mean(solve)),
+            solve_median_ms=1e3 * float(np.median(solve)),
+            n_solve=len(solve), steps=len(step_s),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            captured=sum(e.backend.graphs.n_captured for e in fleet.engines),
+            # the replicas' decode graphs and the router's solve graphs
+            replayed=sum(e.backend.graphs.n_replayed for e in fleet.engines)
+            + solve_replays() - s0,
+            checked=0 if chk is None else chk.n)
+        del built, fleet
+        _free()
+    _check_same("fleet", runs)
+    _capture_report("fleet", "R=4 granite-8b paged behind bfio", runs, card,
+                    unit="fleet step")
+    cap, eag = runs["captured"], runs["eager"]
+    print(f"capture fleet: router solve captured mean "
+          f"{cap['solve_ms']:.3f} / median {cap['solve_median_ms']:.3f} ms, "
+          f"eager mean {eag['solve_ms']:.3f} / median "
+          f"{eag['solve_median_ms']:.3f} ms a routing step ({cap['n_solve']} "
+          f"routing steps; a padded shape's first solve captures its "
+          f"graph) [{card}]")
+    out["fleet"] = {m: {k: r[k] for k in (
+        "mean_ms", "median_ms", "solve_ms", "solve_median_ms", "peak_gb",
+        "captured", "replayed")} for m, r in runs.items()}
+    params = None
+    _free()
+
+    # the device loop at phase 8's width, 16 steps each way
+    from repro_torch.serving import init_loop_state, make_device_serving_loop
+    sizes, rem = _loop_stream(192, 832, 0, integer=False)
+    state = init_loop_state(LOOP_G, LOOP_B, sizes, rem, LOOP_W)
+    loop, steps = {}, 16
+    for m in order:
+        run = make_device_serving_loop(LOOP_G, LOOP_B, LOOP_W, swap_iters=4)
+        ctx = graphs.eager() if m == "eager" else contextlib.nullcontext()
+        with ctx:
+            if m == "captured":
+                run(state, 1)           # the capture, outside the timing
+            torch.cuda.synchronize()
+            c0 = _counts()
+            t0 = time.perf_counter()
+            with (contextlib.nullcontext() if m == "eager"
+                  else _CheckedReplays()):
+                loop[m] = run(state, steps)
+            torch.cuda.synchronize()
+            loop[m + "_ms"] = 1e3 * (time.perf_counter() - t0) / steps
+            loop[m + "_k4"] = _counts()["bfio_swap"] - c0["bfio_swap"]
+    for f in loop["captured"]._fields:
+        check(torch.equal(getattr(loop["captured"], f),
+                          getattr(loop["eager"], f)),
+              f"capture device loop: {f} differs captured and eager")
+    check(loop["captured_k4"] == loop["eager_k4"] == 4 * steps,
+          f"capture device loop: K4 {loop['captured_k4']} captured, "
+          f"{loop['eager_k4']} eager, need {4 * steps}")
+    print(f"capture device loop: G={LOOP_G} x B={LOOP_B}, wait_cap "
+          f"{LOOP_W}, {steps} steps from the same state: every LoopState "
+          f"field equal captured and eager, K4 {4 * steps} launches both "
+          f"ways, replays under sync debug 'error'; step captured "
+          f"{loop['captured_ms']:.3f} ms, eager {loop['eager_ms']:.2f} ms "
+          f"[{card}]")
+    out["device_loop"] = {"captured_ms": loop["captured_ms"],
+                          "eager_ms": loop["eager_ms"]}
+
+    # profile_decode on paged granite-8b with capture (its default)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        profile_decode.main(["--arch", "granite-8b", "--policy", "bfio_h8",
+                             "--cache-backend", "paged", "--profile-steps",
+                             "4"])
+    _free()
+    prof = [ln for ln in buf.getvalue().splitlines()
+            if "idle share" in ln or "launches" in ln]
+    check(prof, "capture: profile_decode printed no idle share")
+    for ln in prof:
+        print(f"capture profile_decode (captured): {ln} [{card}]")
+    out["profile_decode"] = prof
+    print(f"capture phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _value_and_grads(cfg, params, batch, compute=torch.bfloat16):
@@ -2972,18 +3288,8 @@ def _free() -> None:
 def _wrappers() -> dict:
     """The kernel wrappers (the five kernels and the backwards of K2 and
     K5), each with its ``launches`` counter."""
-    from repro_torch.kernels import bfio_swap as bs
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import rms_norm as rk
-    from repro_torch.kernels import ssm_scan as ss
-    return {"rms_norm": rk.rms_norm,
-            "rms_norm_bwd": rk.rms_norm_bwd,
-            "paged_decode_attention": pa.paged_decode_attention,
-            "bfio_swap": bs.swap_best,
-            "decode_attention": da.decode_attention,
-            "ssm_chunk_scan": ss.ssm_chunk_scan,
-            "ssm_chunk_scan_bwd": ss.ssm_chunk_scan_bwd}
+    from repro_torch.core.graphs import launch_counters
+    return launch_counters()
 
 
 def _zero_and_read(before):
@@ -3049,6 +3355,7 @@ def main() -> None:
                  "mesh_train": lambda: phase_mesh_train_path(dev, card),
                  "cross_train_families":
                      lambda: phase_cross_device_train_families(dev),
+                 "capture": lambda: phase_capture(card),
                  **{k: (lambda k=k: phase_train_path_family(k, card))
                     for k in FAMILY_TRAIN}}
         for name in sys.argv[2:]:
@@ -3156,8 +3463,9 @@ def main() -> None:
                   "slot_granite_ref": phase_slot_path("granite-8b", 32,
                                                       engine_mode="ref"),
                   "mesh": phase_mesh_path(dev, card),
-                  "device_loop": phase_device_loop_path(),
-                  "train": phase_train_path(card),
+                  "device_loop": phase_device_loop_path()})
+    phase_capture(card)
+    paths.update({"train": phase_train_path(card),
                   "train_zamba2": phase_train_path_ssm(card)})
     for key in FAMILY_TRAIN:
         t0 = time.perf_counter()

@@ -6,7 +6,13 @@ parity pair covers the port too).  Construction is greedy LPT (a Python
 loop over candidates in size order, every branch a ``torch.where`` mask);
 refinement is a fixed number of best-improving pairwise swap iterations
 (the exchange argument of the proofs).  Nothing in a solve reads a value
-back to the host: the caller copies the returned ``assign`` once.
+back to the host: the caller copies the returned ``assign`` once.  On
+the card a solve is one CUDA graph per static shape (C, G, N, W,
+``swap_iters``, ``method``, ``prune_k``), captured at its first call and
+replayed after (:mod:`repro_torch.core.graphs`; the reference jits it),
+the greedy loop and the ``swap_iters`` swap searches recorded once; a
+solve called inside another captured region (the device loop's step) is
+recorded into that region's graph.
 
 Every function carries a leading cluster axis C: ``bfio_assign_batch``
 solves C independent instances in one pass (the reference vmaps; here
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import torch
 
+from .graphs import Graphs, captures
 from ..kernels.bfio_swap import (
     _pair_vals,
     swap_best,
@@ -58,6 +65,9 @@ __all__ = ["bfio_assign", "bfio_assign_batch", "windowed_imbalance"]
 
 _INF = float("inf")
 METHODS = ("kernel", "plain", "dense")
+#: the solve's graphs on each CUDA device, one per static shape (the
+#: reference jits the solve once per static shape)
+_SOLVES: dict = {}
 
 
 def _gsum(x: torch.Tensor) -> torch.Tensor:
@@ -202,10 +212,19 @@ def bfio_assign_batch(base, caps, cands, valid, n_admit,
     cands = torch.as_tensor(cands, dtype=torch.float32, device=dev)
     valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
     n_admit = torch.as_tensor(n_admit, dtype=torch.int32, device=dev)
-    loads, _, assign = _greedy(base, caps, cands, valid, n_admit)
-    _, assign = _refine(loads, assign, cands, valid, swap_iters=swap_iters,
-                        method=method, tile=tile, prune_k=prune_k)
-    return assign
+
+    def solve(base, caps, cands, valid, n_admit):
+        loads, _, assign = _greedy(base, caps, cands, valid, n_admit)
+        return _refine(loads, assign, cands, valid, swap_iters=swap_iters,
+                       method=method, tile=tile, prune_k=prune_k)[1]
+    if not captures(dev):
+        return solve(base, caps, cands, valid, n_admit)
+    graphs = _SOLVES.get(dev)
+    if graphs is None:
+        graphs = _SOLVES[dev] = Graphs(dev)
+    # the solve's static shape: (C, G, N, W) is in the inputs' shapes
+    return graphs.run((swap_iters, method, tile, prune_k), solve,
+                      (base, caps, cands, valid, n_admit)).clone()
 
 
 def bfio_assign(base, caps, cands, valid, n_admit, swap_iters: int = 8,

@@ -80,7 +80,7 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *,
     b, hq, hd = q.shape
     L, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), device=q.device))
+    scale = 1.0 / torch.sqrt(torch.full((), float(hd), device=q.device))
     qf = (q.reshape(b, hkv, g, hd).float() * scale).to(k_cache.dtype)
     s = torch.einsum("bhgd,blhd->bhgl", qf.float(), k_cache.float())
     lo, hi = live_span(lengths.to(q.device), L,

@@ -74,7 +74,7 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths,
     bt = block_tables.long().clamp(0, k_pool.shape[0] - 1)
     k = k_pool[bt].reshape(B, L, hkv, hd).float()
     v = v_pool[bt].reshape(B, L, hkv, hd).float()
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd)))
+    scale = 1.0 / torch.sqrt(torch.full((), float(hd)))
     qf = q.reshape(B, hkv, g, hd).float() * scale
     s = torch.einsum("bhgd,blhd->bhgl", qf, k)
     pos = torch.arange(L, device=q.device)[None, :]

@@ -11,15 +11,19 @@ not overlap), the idle share, the device kernels launched a step, the
 RMS-norm kernel's (K2's) launches and device time per launch, the share
 of PyTorch's elementwise kernels, and the kernels that take the most
 device time.  ``--chrome-trace PATH`` writes the Chrome trace.  It needs a
-card.
+card.  The decode steps run as the engine runs them on the card, one
+replayed CUDA graph a step (:mod:`repro_torch.core.graphs`); ``--eager``
+profiles them op by op (``graphs.eager()``), the path before capture.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..core import graphs
 from .serve import build_parser, make_engine, submit_requests
 
 __all__ = ["main"]
@@ -35,10 +39,17 @@ def main(argv=None) -> None:
     ap.add_argument("--profile-steps", type=int, default=4)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--chrome-trace", default=None)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode op by op (graphs.eager())")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available() or args.device != "cuda":
         raise RuntimeError("profile_decode measures the card: it needs "
                            "CUDA and --device cuda")
+    with graphs.eager() if args.eager else contextlib.nullcontext():
+        _profile(args)
+
+
+def _profile(args) -> None:
     eng = make_engine(args)
     submit_requests(eng, args.requests, args.max_new, args.seed)
     while True:                      # warm up through prefill
@@ -63,7 +74,9 @@ def main(argv=None) -> None:
     busy_us = sum(_device_us(e) for e in kernels)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    print(f"[profile] {eng.cfg.name} on {torch.cuda.get_device_name(0)}: "
+    print(f"[profile] {eng.cfg.name} "
+          f"({'op by op' if args.eager else 'captured'}) on "
+          f"{torch.cuda.get_device_name(0)}: "
           f"{len(walls)} steps ({n} decode-only), wall "
           f"{wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms, "
           f"idle share {1 - busy_us / wall_us:.1%}")

@@ -15,15 +15,21 @@ share and launches a routing step, the device kernels each routing step
 launches (the kernel launches the profiler records inside the router's
 ``route``), the paged attention kernel's (K1's) time a launch, and the
 kernels that take the most device time.  ``--chrome-trace PATH`` writes
-the Chrome trace.  It needs a card.
+the Chrome trace.  It needs a card.  The replicas' decode steps and the
+router's solve run as the fleet runs them on the card, each a replayed
+CUDA graph (:mod:`repro_torch.core.graphs`; a replay is one
+``cudaGraphLaunch``, counted with the kernel launches); ``--eager``
+profiles them op by op (``graphs.eager()``), the path before capture.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from ..core import graphs
 from .profile_decode import _device_us
 from .serve import build_parser, make_fleet, make_model
 
@@ -31,7 +37,7 @@ __all__ = ["main"]
 
 _SOLVE = "router_solve"
 _LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-             "cuLaunchKernelEx")
+             "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def _labelled(route):
@@ -58,10 +64,18 @@ def main(argv=None) -> None:
     ap.add_argument("--profile-steps", type=int, default=12)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--chrome-trace", default=None)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode and the solve op by op "
+                    "(graphs.eager())")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available() or args.device != "cuda":
         raise RuntimeError("profile_fleet measures the card: it needs "
                            "CUDA and --device cuda")
+    with graphs.eager() if args.eager else contextlib.nullcontext():
+        _profile(args)
+
+
+def _profile(args) -> None:
     built = make_fleet(args, *make_model(args))
     fleet, router = built["fleet"], built["router"]
     router.inner.route = _labelled(router.inner.route)
@@ -93,7 +107,8 @@ def main(argv=None) -> None:
     n_route = max(len(solve), 1)
     split = [e for e in kernels if "split_kernel" in e.key]
     merge = [e for e in kernels if "merge_kernel" in e.key]
-    print(f"[profile] fleet of {fleet.R} x {fleet.engines[0].cfg.name} on "
+    print(f"[profile] fleet of {fleet.R} x {fleet.engines[0].cfg.name} "
+          f"({'op by op' if args.eager else 'captured'}) on "
           f"{torch.cuda.get_device_name(0)}: {len(walls)} fleet steps "
           f"(after {args.skip_steps}), wall {wall_us / 1e3:.2f} ms, "
           f"device busy {busy_us / 1e3:.2f} ms, idle share "

@@ -52,7 +52,9 @@ _NEG = -1e30
 
 
 def _scale(hd: int, device) -> torch.Tensor:
-    return 1.0 / torch.sqrt(torch.tensor(float(hd), device=device))
+    # a fill on the device, not a copy from the host (the captured decode
+    # cannot hold one)
+    return 1.0 / torch.sqrt(torch.full((), float(hd), device=device))
 
 
 def _group_q(q, n_kv: int):

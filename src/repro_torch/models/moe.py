@@ -101,7 +101,10 @@ def _dispatch(x2, top_idx, top_w, w1, w3, w2, *, capacity: int,
     local = (flat_e >= e0) & (flat_e < e0 + E_loc)
     le = torch.where(local, flat_e - e0, E_loc)            # E_loc: trash
     # each pick's number among its expert's picks, in (token, k) order
-    pos = torch.cumsum(F.one_hot(le, E_loc + 1), dim=0) - 1
+    # (the one-hot by comparison: F.one_hot checks its classes on the CPU
+    # with a host read, which the captured decode cannot hold)
+    onehot = (le[:, None] == torch.arange(E_loc + 1, device=le.device)).long()
+    pos = torch.cumsum(onehot, dim=0) - 1
     pos_e = torch.gather(pos, 1, le[:, None])[:, 0]
     ok = local & (pos_e < capacity)
     slot = torch.where(ok, le * capacity + pos_e,

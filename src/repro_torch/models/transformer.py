@@ -1228,6 +1228,24 @@ def chunk_prefill_fn(cfg: ModelConfig, params, cache, tokens, offsets,
                        _last(r, chunk_lens, C)), cache)
 
 
+def _kept_writes(blk, off, nb_pool: int):
+    """The paged decode's KV writes as one fixed-shape scatter, with no
+    host sync: a row whose ``blk`` is ``nb_pool`` (padding, frozen KV) is
+    dropped by writing the first live row's value to that row's position
+    again, so every duplicate destination gets the same bits and the
+    scatter's order cannot matter.  Returns (src rows, blocks, offsets,
+    live (B, 1, 1)); with no live row at all ``live`` is False and every
+    row's destination is (0, 0), to be written with its own content."""
+    keep = blk < nb_pool
+    first = keep.int().argmax()                  # 0 when none is live
+    src = torch.where(keep, torch.arange(blk.shape[0], device=blk.device),
+                      first)
+    live = keep[src]
+    wblk = torch.where(live, blk[src].long(), 0)
+    woff = torch.where(live, off[src].long(), 0)
+    return src, wblk, woff, live[:, None, None]
+
+
 def paged_decode_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
                     lengths, blk, off, tokens, *, block_size: int,
                     attn_impl: str = "kernel", mesh=None,
@@ -1263,15 +1281,17 @@ def paged_decode_fn(cfg: ModelConfig, params, k_pool, v_pool, tables,
     nb_pool = k_pool.shape[1]
     bt = tables.long().clamp(0, nb_pool - 1)
     L = tables.shape[1] * block_size
-    wrows = (blk < nb_pool).nonzero(as_tuple=True)[0]
-    wblk, woff = blk[wrows].long(), off[wrows].long()
+    src, wblk, woff, live = _kept_writes(blk, off, nb_pool)
+    # no row live: every row rewrites position (0, 0) of each layer with
+    # the content it had when the step began
+    k00, v00 = k_pool[:, 0, 0], v_pool[:, 0, 0]
     r = None
     for i in range(cfg.n_layers):
         p = _slice(params["blocks"], i)
         kp, vp = k_pool[i], v_pool[i]
         x, q, k, v = _chunk_qkv(cfg, p, x, r, sin, cos)
-        kp[wblk, woff] = k[wrows, 0].to(kp.dtype)
-        vp[wblk, woff] = v[wrows, 0].to(vp.dtype)
+        kp[wblk, woff] = torch.where(live, k[src, 0].to(kp.dtype), k00[i])
+        vp[wblk, woff] = torch.where(live, v[src, 0].to(vp.dtype), v00[i])
         if attn_impl == "kernel":
             o = paged_decode_attention(q[:, 0].contiguous(), kp, vp, tables,
                                        lengths, block_size=block_size)

@@ -36,6 +36,16 @@ The contract the engine relies on:
 * All methods are synchronous with respect to the host arrays the engine
   reads (``lengths`` bookkeeping must be visible immediately after the
   call returns).
+
+On the card each backend's decode is one CUDA graph per bucket (the
+reference jits it per bucket; :mod:`repro_torch.core.graphs`): the host
+builds the step's arrays (token ids, row indices, block tables, lengths,
+write positions), they are copied into the graph's static buffers, the
+graph replays, and the next tokens are read back once.  So nothing in a
+decode body reads the device from the host or takes a shape from the
+data: the padding rows' dropped writes are fixed-shape scatters
+(:func:`scatter_rows`, ``paged_decode_fn``).  Prefill and chunked prefill
+run op by op.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core.graphs import Graphs
 from ..models import (
     chunk_prefill_fn,
     decode_fn,
@@ -88,9 +99,17 @@ def gather_rows(cache, idx: torch.Tensor):
 def scatter_rows(cache, sub, dst: torch.Tensor) -> None:
     """Write sub-batch rows back at ``dst`` IN PLACE.  Entries of ``dst``
     past the last row (``dst == N``) are padding whose writes are dropped,
-    as JAX drops the reference's out-of-bounds scatter."""
+    as JAX drops the reference's out-of-bounds scatter.  At least one
+    entry must be a row.
+
+    One fixed-shape scatter with no host sync (it runs inside the captured
+    decode): a padding entry writes the first live entry's row to that
+    entry's destination again, so every duplicate destination gets the
+    same bits and the scatter's order cannot matter."""
     keep = dst < cache["lengths"].shape[0]
-    rows, dst = keep.nonzero(as_tuple=True)[0], dst[keep]
+    rows = torch.where(keep, torch.arange(dst.shape[0], device=dst.device),
+                       keep.int().argmax())
+    dst = dst[rows]
 
     def put(full, part):
         if full.dim() == 1:
@@ -206,6 +225,7 @@ class SlotCacheBackend(CacheBackend):
         self.cache = init_cache(cfg, self.N, ec.max_seq_len,
                                 device=self.device)
         self._bytes = int(sum(a.nbytes for a in _leaves(self.cache)))
+        self.graphs = Graphs(self.device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -220,6 +240,8 @@ class SlotCacheBackend(CacheBackend):
                  self._dev(np.asarray(dst, np.int64)))
 
     def prefill_chunk(self, toks, offs, clens, slots) -> np.ndarray:
+        if not (slots >= 0).any():
+            raise ValueError("prefill_chunk needs at least one live row")
         idx = self._dev(np.maximum(slots, 0).astype(np.int64))
         dst = self._dev(np.where(slots >= 0, slots, self.N).astype(np.int64))
         sub = gather_rows(self.cache, idx)
@@ -230,22 +252,45 @@ class SlotCacheBackend(CacheBackend):
         scatter_rows(self.cache, sub, dst)
         return logits.float().cpu().numpy()
 
+    def _state(self) -> list:
+        return _leaves(self.cache) + _leaves(self.params)
+
+    def _decode_full(self, toks: torch.Tensor) -> torch.Tensor:
+        """The full-batch decode (the reference's ``_jitted_decode_full``):
+        every slot, the flat cache updated in place; greedy tokens."""
+        cache = dict(self.cache)       # decode_fn rebinds "lengths"
+        logits, cache = decode_fn(self.cfg, self.params, cache, toks)
+        self.cache["lengths"].copy_(cache["lengths"])
+        return logits.argmax(-1).to(torch.int32)
+
+    def _decode_compact(self, toks, idx, dst) -> torch.Tensor:
+        """The compact decode (``_jitted_decode_compact``): gather rows
+        ``idx``, decode them, scatter them back at ``dst`` (pads at
+        ``N``); greedy tokens."""
+        sub = gather_rows(self.cache, idx)
+        logits, sub = decode_fn(self.cfg, self.params, sub, toks)
+        scatter_rows(self.cache, sub, dst)
+        return logits.argmax(-1).to(torch.int32)
+
     def decode(self, slot_tokens, active_idx, bucket) -> np.ndarray:
+        """One captured region a bucket on the card (see
+        :mod:`repro_torch.core.graphs`), then one host read."""
         n = active_idx.size
+        if n == 0:
+            return np.zeros(0, np.int32)
         if bucket >= self.N:
-            logits, _ = decode_fn(self.cfg, self.params, self.cache,
-                                  self._dev(slot_tokens.astype(np.int32)))
-            nxt_all = logits.argmax(-1).to(torch.int32).cpu().numpy()
-            return nxt_all[active_idx]
+            nxt = self.graphs.run(
+                "full", self._decode_full,
+                (np.asarray(slot_tokens, np.int32),), self._state)
+            return nxt.cpu().numpy()[active_idx]
         idx = np.zeros(bucket, dtype=np.int64)
         idx[:n] = active_idx
         dst = np.full(bucket, self.N, dtype=np.int64)   # pads: dropped
         dst[:n] = active_idx
-        sub = gather_rows(self.cache, self._dev(idx))
-        logits, sub = decode_fn(self.cfg, self.params, sub,
-                                self._dev(slot_tokens[idx].astype(np.int32)))
-        scatter_rows(self.cache, sub, self._dev(dst))
-        return logits.argmax(-1).to(torch.int32).cpu().numpy()[:n]
+        nxt = self.graphs.run(
+            "compact", self._decode_compact,
+            (slot_tokens[idx].astype(np.int32), idx, dst), self._state)
+        return nxt.cpu().numpy()[:n]
 
     def release(self, slots) -> None:
         # rows are simply abandoned in place (stale state is masked by
@@ -318,6 +363,7 @@ class PagedCacheBackend(CacheBackend):
         if getattr(ec, "prefix_cache", False):
             self.prefix = PrefixIndex()
             self.kv.prefix = self.prefix
+        self.graphs = Graphs(self.device)
 
     # -- helpers --------------------------------------------------------
     @property
@@ -543,12 +589,22 @@ class PagedCacheBackend(CacheBackend):
         off = (pos % self.block_size).astype(np.int32)
         toks = np.zeros(bucket, np.int32)
         toks[:n] = slot_tokens[active_idx]
-        nxt, _, _ = paged_decode_fn(                 # pools updated in place
-            self.cfg, self.params, self.kv.k_pool, self.kv.v_pool,
-            self._dev(tables), self._dev(lens), self._dev(blk),
-            self._dev(off), self._dev(toks), block_size=self.block_size,
-            attn_impl=self.attn_impl)
+        nxt = self.graphs.run("decode", self._decode,
+                              (tables, lens, blk, off, toks), self._state)
         return nxt.cpu().numpy()[:n]
+
+    def _state(self) -> list:
+        return [self.kv.k_pool, self.kv.v_pool] + _leaves(self.params)
+
+    def _decode(self, tables, lens, blk, off, toks) -> torch.Tensor:
+        """The paged decode (the reference's jitted ``paged_decode_fn``),
+        pools updated in place; greedy tokens.  One captured region a
+        bucket on the card (see :mod:`repro_torch.core.graphs`)."""
+        nxt, _, _ = paged_decode_fn(
+            self.cfg, self.params, self.kv.k_pool, self.kv.v_pool, tables,
+            lens, blk, off, toks, block_size=self.block_size,
+            attn_impl=self.attn_impl)
+        return nxt
 
     # -- memory pressure (engine-driven preemption) ---------------------
     def decode_block_demand(self, active_idx: np.ndarray) -> int:

@@ -25,11 +25,16 @@ its decode progress is preserved) until the total fits.
 ``tot_preempts`` counts the evictions, mirroring the host engine's
 ``preemptions`` stat.
 
-The steps run eagerly, one PyTorch op after another (CUDA-graph capture
-of the loop is ROADMAP Queue A item 9).  With ``kv_pool == 0`` a step
-reads nothing back to the host.  With ``kv_pool > 0`` the eviction loop's
-condition is read on the host once per eviction round, since its trip
-count depends on the data.
+With ``kv_pool == 0`` a step reads nothing back to the host, and on the
+card ``run`` replays one CUDA graph of the step ``n_steps`` times over
+static ``LoopState`` buffers (the reference runs one jitted ``lax.scan``;
+:mod:`repro_torch.core.graphs`), the solve and its K4 launches inside
+it; it returns fresh tensors, so no caller's state aliases the buffers a
+later call overwrites.  With ``kv_pool > 0`` the steps run eagerly, one
+PyTorch op after another: the eviction loop's trip count depends on the
+data, so its condition is read on the host once per eviction round (its
+capture needs a bounded masked loop or a conditional graph node, ROADMAP
+Queue A item 9).
 
 Summation order.  Every float sum follows the reference's order on the
 CPU, so a CPU run is bit-identical to the reference's ``run`` and a card
@@ -49,6 +54,7 @@ import numpy as np
 import torch
 
 from ..core.balancer_jax import bfio_assign
+from ..core.graphs import Graphs, captures
 from ..kernels.bfio_swap import wsum
 from ..models import resolve_device
 
@@ -217,14 +223,33 @@ def make_device_serving_loop(G: int, B: int, wait_cap: int,
                          state.tot_imbalance + imb, state.tot_steps + 1,
                          pl, adm, n_pre)
 
+    def step_in_place(*fields) -> LoopState:
+        """One step over the static state buffers, written back into
+        them (the body of the captured step)."""
+        new = step(LoopState(*fields))
+        for buf, val in zip(fields, new):
+            buf.copy_(val)
+        return LoopState(*fields)
+
+    graphs = Graphs(dev)
+
     def run(state: LoopState, n_steps: int) -> LoopState:
         if state.slot_active.device != slot_ids.device:
             raise ValueError(
                 f"the loop state lives on {state.slot_active.device}, the "
                 f"loop runs on {slot_ids.device}")
+        if pooled or n_steps <= 0:
+            for _ in range(n_steps):
+                state = step(state)
+            return state
+        if captures(dev):
+            out = graphs.run("step", step_in_place, tuple(state),
+                             repeat=n_steps)
+            return LoopState(*(t.clone() for t in out))
+        fields = tuple(t.clone() for t in state)    # the captured body
         for _ in range(n_steps):
-            state = step(state)
-        return state
+            step_in_place(*fields)
+        return LoopState(*fields)
 
     return run
 
